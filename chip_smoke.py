@@ -1,0 +1,341 @@
+"""Drive the PyTorch/CUDA port (``surfacenet_tpu_torch``) once on one card.
+
+    python3 chip_smoke.py
+
+Phases (each announced on its own line before it starts; any failure ends
+the run with a non-zero exit code and no result line):
+
+  1. device: the card's name and power limit, PyTorch and CUDA versions;
+  2. build: both CUDA kernels, one ``nvcc`` per source, in parallel;
+  3. scene: the golden sphere in memory, 12 views of 600x800;
+  4. main path: ``cli.reconstruct_scan`` with the ``dtu9_full`` preset
+     (fast64 SurfaceNet in bf16 with seeded random weights, 64^3 cubes,
+     24 cubes a batch, 5 pairs, refinement prepass on); fails unless both
+     kernels were launched by this run;
+  5. the same sweep with the photoconsistency predictor: points must come
+     out, and their distance to the analytic sphere is reported;
+  6. each kernel against its plain PyTorch version at the first batch's
+     own inputs, with CUDA-event times, the card's bound and, for the
+     gather, ``F.grid_sample``'s time on the same projected points; then
+     the device time of one warm batch step split into model, kernels
+     and the rest;
+  7. the result line.
+
+Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
+non-zero without one.  Writes only to a temporary directory and to the
+package's git-ignored build directory.
+"""
+
+import json
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from surfacenet_tpu_torch.cli import reconstruct_scan
+from surfacenet_tpu_torch.config import baseline_config
+from surfacenet_tpu_torch.data.dtu import Scan
+from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
+from surfacenet_tpu_torch.geometry.camera import project_rows
+from surfacenet_tpu_torch.models.surfacenet import (
+    forward_flops, init_surfacenet, make_predictor,
+)
+from surfacenet_tpu_torch.ops.cuda import _build
+from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_vote
+from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
+from surfacenet_tpu_torch.ops.cvc import build_cvc_views
+from surfacenet_tpu_torch.ops.ray_pooling import (
+    ray_vote_affine_plain, vote_params,
+)
+from surfacenet_tpu_torch.pipeline.sweep import (
+    cube_batch_step, photoconsistency_predictor, plan_sweep, pool_views_for,
+    resolve_pool_window,
+)
+from surfacenet_tpu_torch.utils.ply import read_ply
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32
+# operations/s outside the tensor cores, bf16 tensor-core FLOP/s
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12  # dense tensor-core bf16
+# float32 operations per voxel of the gather: centre 9, projection 18,
+# eps 1, divisions 2 (all voxels); floor/fractions/weights 10 and three
+# 4-tap channel sums 21 (valid voxels only)
+GATHER_OPS_ALL, GATHER_OPS_VALID = 30, 31
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def phase(n, name):
+    log(f"== phase {n}: {name}")
+
+
+def cuda_ms(fn, iters, warmup=2):
+    """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes, n_ops):
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_counts():
+    warp_gather.launches = 0
+    affine_vote.launches = 0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    phase(1, "device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+
+    phase(2, "build")
+    secs = _build.build_all()
+    log(f"kernels built in {secs:.2f} s")
+    for name, out in sorted(_build.build_log.items()):
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    phase(3, "scene")
+    t0 = time.perf_counter()
+    scene = make_sphere_scene(n_views=12, hw=(600, 800), radius=30.0,
+                              focal=1000.0)
+    scan = Scan(scene.images, scene.Ps, scene.bbox_min, scene.bbox_max,
+                "sphere")
+    log(f"sphere scene {scene.images.shape} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    cfg = baseline_config("dtu9_full")
+    D, s = cfg.voxel.cube_size, cfg.voxel.voxel_size_mm
+    tmp = tempfile.TemporaryDirectory()
+
+    phase(4, "main path: reconstruct_scan, dtu9_full, seeded fast64 net")
+    model = init_surfacenet(cfg.model, torch.Generator().manual_seed(0))
+    predictor = make_predictor(model, cfg.model, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    n_pts, stats, timings = reconstruct_scan(
+        scan, cfg, predictor, f"{tmp.name}/model.ply", dev
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"warp_gather": warp_gather.launches,
+                "affine_vote": affine_vote.launches}
+    log(f"stages {json.dumps(timings)} total {wall:.3f} s")
+    log(f"cubes {stats.n_cubes_after_prefilter}/{stats.n_cubes_total} in "
+        f"{stats.n_batches} batches, {stats.n_cubes_after_prefilter / stats.sweep_s:.2f} "
+        f"cubes/s (sweep stage), non-empty {stats.n_cubes_nonempty}, "
+        f"points {n_pts}, refine passes {stats.refine_info['passes']} "
+        f"max shift {stats.refine_info['max_shift_px']:.3f} px")
+    log(f"kernel launches in the main path: {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise RuntimeError(f"main path did not launch kernel {name}")
+
+    phase(5, "main path with the photoconsistency predictor")
+    t0 = time.perf_counter()
+    n_pc, stats_pc, timings_pc = reconstruct_scan(
+        scan, cfg, photoconsistency_predictor, f"{tmp.name}/pc.ply", dev
+    )
+    log(f"stages {json.dumps(timings_pc)} total "
+        f"{time.perf_counter() - t0:.3f} s")
+    pts, _ = read_ply(f"{tmp.name}/pc.ply")
+    if n_pc <= 0 or len(pts) != n_pc:
+        raise RuntimeError(f"photoconsistency sweep wrote {n_pc} points")
+    if not np.isfinite(pts).all():
+        raise RuntimeError("non-finite points in the output")
+    dist = scene.surface_distance(pts.astype(np.float64))
+    log(f"points {n_pc}; |dist to sphere| median {np.median(dist):.4f} mm, "
+        f"within 2 voxels {(dist < 2 * s).mean():.4f}")
+    if not (dist < 2 * s).any():
+        raise RuntimeError("no output point lies on the sphere")
+
+    phase(6, "kernels against their plain versions, first batch")
+    torch.cuda.empty_cache()
+    plan = plan_sweep(stats.Ps, scene.bbox_min, scene.bbox_max,
+                      scene.images.shape[1:3], cfg, dev)
+    B = cfg.sweep.cube_batch
+    batch = plan.batch(slice(0, B), dev)
+    origins, uniq = batch[0], batch[3]
+    images_g = torch.as_tensor(scene.images, device=dev).to(
+        torch.bfloat16).contiguous()
+    Ps_d = torch.as_tensor(stats.Ps, dtype=torch.float32, device=dev)
+    Ku = uniq.shape[1]
+    views = torch.where(uniq >= 0, uniq, uniq[:, :1].clamp(min=0))
+    views = views.reshape(-1).contiguous()
+    vorig = origins.repeat_interleave(Ku, dim=0).contiguous()
+    n_items = views.shape[0]
+
+    colors_k, valid_k = warp_gather(images_g, Ps_d, views, vorig, D=D, s=s)
+    colors_p, valid_p = build_cvc_views(images_g, Ps_d, views, vorig, D, s)
+    torch.cuda.synchronize()
+    agree = (valid_k == valid_p).float().mean().item()
+    both = valid_k & valid_p
+    g_err = (colors_k - colors_p).abs()[both].max().item()
+    n_valid = int(valid_k.sum().item())
+    del colors_p, valid_p
+    log(f"warp_gather: {n_items} items of {D}^3, validity agreement "
+        f"{agree:.6f}, max |colour diff| {g_err:.3e}")
+    if agree < 0.9999 or g_err > 1e-3:
+        raise RuntimeError("warp_gather disagrees with its plain version")
+    g_ms = cuda_ms(lambda: warp_gather(images_g, Ps_d, views, vorig,
+                                       D=D, s=s), iters=20)
+    g_plain = cuda_ms(lambda: build_cvc_views(images_g, Ps_d, views, vorig,
+                                              D, s), iters=3, warmup=1)
+    # library yardstick: bilinear sampling alone, at the same points
+    P = Ps_d[views.long()]
+    H, W = images_g.shape[1], images_g.shape[2]
+    r = (torch.arange(D, dtype=torch.float32, device=dev) + 0.5) * s
+    nu, nv, den = project_rows(
+        P.reshape(n_items, 1, 1, 3, 4),
+        vorig[:, 0, None, None, None] + r[None, :, None, None],
+        vorig[:, 1, None, None, None] + r[None, None, :, None],
+        vorig[:, 2, None, None, None] + r[None, None, None, :],
+    )
+    den = den + 1e-8
+    grid = torch.stack([nu / den / (W - 1) * 2 - 1,
+                        nv / den / (H - 1) * 2 - 1], dim=-1)
+    grid = grid.reshape(n_items, -1, 1, 2)
+    del nu, nv, den
+    imgs_items = images_g.float().permute(0, 3, 1, 2)[views.long()]
+    g_lib = cuda_ms(lambda: F.grid_sample(
+        imgs_items, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), iters=5, warmup=1)
+    del imgs_items, grid
+    g_bytes = (images_g.numel() * images_g.element_size() + Ps_d.numel() * 4
+               + views.numel() * 4 + vorig.numel() * 4
+               + colors_k.numel() * 4 + valid_k.numel())
+    g_ops = n_items * D**3 * GATHER_OPS_ALL + n_valid * GATHER_OPS_VALID
+    g_bound, g_by = bound(g_bytes, g_ops)
+    del colors_k, valid_k
+
+    window = resolve_pool_window(cfg)
+    step_kw = dict(
+        D=D, s=s, n_pairs=cfg.fusion.n_view_pairs, tau=cfg.fusion.tau,
+        gamma=cfg.fusion.gamma, adaptive=False,
+        center_colors=cfg.voxel.center_colors, predict=predictor,
+        n_pool_views=cfg.fusion.n_pool_views, pool_window=window,
+    )
+    _, fused, _ = cube_batch_step(images_g, Ps_d, *batch, **step_kw)
+    pool_views, view_mask = pool_views_for(
+        uniq, cfg.fusion.n_pool_views, cfg.fusion.n_view_pairs
+    )
+    axis, slopes = vote_params(origins, s, Ps_d[pool_views.long()],
+                               view_mask, D)
+    fused = fused.contiguous()
+    votes_k = affine_vote(fused, axis, slopes, window)
+    votes_p = ray_vote_affine_plain(fused, axis, slopes, window)
+    torch.cuda.synchronize()
+    v_agree = (votes_k == votes_p).float().mean().item()
+    v_err = (votes_k - votes_p).abs().max().item()
+    log(f"affine_vote: {fused.shape[0]} cubes x {axis.shape[1]} views, "
+        f"window {window}, equal votes {v_agree:.6f}, max |diff| {v_err}")
+    if v_agree < 0.9999:
+        raise RuntimeError("affine_vote disagrees with its plain version")
+    v_ms = cuda_ms(lambda: affine_vote(fused, axis, slopes, window), iters=20)
+    v_plain = cuda_ms(lambda: ray_vote_affine_plain(fused, axis, slopes,
+                                                    window), iters=3,
+                      warmup=1)
+    n_active = int((axis >= 0).sum().item())
+    # the operations the function needs per (voxel, active view): the max
+    # over the ray window (2w, or with window 0 one (D-1)-way max per ray
+    # shared by its D voxels), the compare and the add.  The shear offsets
+    # depend only on (cube, view, slab) and are left out.
+    max_ops = (D - 1) / D if window <= 0 else 2 * window
+    v_bytes = (fused.numel() * 4 + axis.numel() * 4 + slopes.numel() * 4
+               + votes_k.numel() * 4)
+    v_ops = n_active * D**3 * (max_ops + 2)
+    v_bound, v_by = bound(v_bytes, v_ops)
+
+    # where one warm batch step's device time goes
+    step_ms = cuda_ms(lambda: cube_batch_step(
+        images_g, Ps_d, *batch, compact_output=True, **step_kw), iters=3,
+        warmup=1)
+    x = torch.randn((B * cfg.fusion.n_view_pairs, D, D, D, 6), device=dev,
+                    generator=torch.Generator(dev).manual_seed(0)).to(
+        torch.bfloat16)
+    model_ms = cuda_ms(lambda: predictor(x, None), iters=3, warmup=1)
+    del x
+    model_flops = B * cfg.fusion.n_view_pairs * forward_flops(cfg.model, D)
+    breakdown = {
+        "cubes": B, "step_ms": step_ms, "model_ms": model_ms,
+        "model_tflop": model_flops / 1e12,
+        "model_mfu_bf16": model_flops / (model_ms * 1e-3) / PEAK_BF16_S,
+        "warp_gather_ms": g_ms, "affine_vote_ms": v_ms,
+        "rest_ms": step_ms - model_ms - g_ms - v_ms,
+        "cubes_per_s": B / step_ms * 1e3,
+        "run_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    log(f"batch step breakdown {json.dumps(breakdown)}")
+
+    kernels = [
+        {
+            "name": "warp_gather", "route": "cuda",
+            "source": "surfacenet_tpu_torch/csrc/warp_gather.cu",
+            "replaces": "surfacenet_tpu/ops/pallas/warp_gather.py:45",
+            "launches": launches["warp_gather"], "max_abs_err": g_err,
+            "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
+            "bound_by": g_by, "library_ms": g_lib,
+            "validity_agreement": agree, "items": n_items,
+        },
+        {
+            "name": "affine_vote", "route": "cuda",
+            "source": "surfacenet_tpu_torch/csrc/affine_vote.cu",
+            "replaces": "surfacenet_tpu/ops/pallas/affine_pool.py:239",
+            "launches": launches["affine_vote"], "max_abs_err": v_err,
+            "ms": v_ms, "plain_ms": v_plain, "bound_ms": v_bound,
+            "bound_by": v_by, "library_ms": None,
+            "vote_agreement": v_agree, "cubes": int(fused.shape[0]),
+        },
+    ]
+    for k in kernels:
+        log(f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}), plain {k['plain_ms']:.4f} ms, library "
+            f"{k['library_ms']}")
+    tmp.cleanup()
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
+
+    phase(7, "result")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,168 @@
+"""DTU MVS dataset loading (own copy of ``surfacenet_tpu/data/dtu.py``).
+
+The reference consumes the DTU "SampleSet" layout: per-scan rectified images
+(``rect_###_<light>_r5000.png``) plus per-view 3x4 projection matrices in
+``pos_###.txt`` calibration files.  This loader supports that layout and a
+simpler generic one, and includes a writer so synthetic scenes can be
+round-tripped through the on-disk format in tests.  PIL is imported only
+inside the image read and write functions.
+
+Generic scan layout:
+    scan_dir/
+      images/  000.png 001.png ...        (any PIL-readable format)
+      cams/    pos_000.txt pos_001.txt    (3 rows x 4 floats, whitespace)
+      bbox.txt                            (2 rows x 3 floats: min, max) [opt]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import os
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Scan:
+    images: np.ndarray  # (V, H, W, 3) float32 in [0, 1]
+    Ps: np.ndarray  # (V, 3, 4) float64
+    bbox_min: Optional[np.ndarray]  # (3,) mm or None
+    bbox_max: Optional[np.ndarray]
+    name: str = ""
+
+
+def read_projection_matrix(path: str) -> np.ndarray:
+    """Parse a DTU ``pos_###.txt``: 3 rows of 4 floats (whitespace/newline)."""
+    vals = np.loadtxt(path, dtype=np.float64)
+    P = np.asarray(vals, np.float64).reshape(3, 4)
+    return P
+
+
+def write_projection_matrix(path: str, P: np.ndarray) -> None:
+    np.savetxt(path, np.asarray(P, np.float64).reshape(3, 4), fmt="%.10e")
+
+
+def _load_image(path: str) -> np.ndarray:
+    from PIL import Image
+
+    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    return img
+
+
+def load_scan(
+    scan_dir: str,
+    light: str = "3",
+    max_views: Optional[int] = None,
+    downsample: int = 1,
+) -> Scan:
+    """Load a scan from either the generic or the DTU SampleSet layout.
+
+    Args:
+      light: DTU lighting condition index used for ``rect_###_{light}_*``
+        images (ignored for the generic layout).
+      downsample: integer image downsampling factor; projection matrices are
+        rescaled accordingly (P's first two rows divide by the factor).
+    """
+    img_paths: List[str]
+    cam_paths: List[str]
+
+    generic_imgs = sorted(
+        glob.glob(os.path.join(scan_dir, "images", "*"))
+    )
+    if generic_imgs:
+        img_paths = generic_imgs
+        cam_paths = sorted(
+            glob.glob(os.path.join(scan_dir, "cams", "pos_*.txt"))
+        )
+    else:
+        # DTU SampleSet: rect_001_3_r5000.png, 1-indexed views
+        pat = os.path.join(scan_dir, f"rect_*_{light}_r5000.png")
+        img_paths = sorted(glob.glob(pat))
+        if not img_paths:
+            pat = os.path.join(scan_dir, "rect_*.png")
+            img_paths = sorted(glob.glob(pat))
+        cal_dir = os.path.join(scan_dir, "cal")
+        parent = os.path.dirname(os.path.normpath(scan_dir))
+        for cand in (
+            cal_dir,
+            # sibling of the scan dir, and the real SampleSet layout where
+            # Calibration/cal18 is a sibling of the Rectified/ folder:
+            #   SampleSet/MVS Data/Rectified/scan6/rect_*.png
+            #   SampleSet/MVS Data/Calibration/cal18/pos_*.txt
+            os.path.join(parent, "Calibration", "cal18"),
+            os.path.join(
+                os.path.dirname(parent), "Calibration", "cal18"
+            ),
+            os.path.join(scan_dir, "pos"),
+        ):
+            if os.path.isdir(cand):
+                cam_paths = sorted(
+                    glob.glob(os.path.join(cand, "pos_*.txt"))
+                )
+                break
+        else:
+            cam_paths = []
+
+    if not img_paths:
+        raise FileNotFoundError(f"no images found in {scan_dir}")
+    if max_views:
+        img_paths = img_paths[:max_views]
+        cam_paths = cam_paths[: max_views]
+    if len(cam_paths) < len(img_paths):
+        raise FileNotFoundError(
+            f"{scan_dir}: {len(img_paths)} images but "
+            f"{len(cam_paths)} calibration files"
+        )
+
+    images = np.stack([_load_image(p) for p in img_paths])
+    Ps = np.stack(
+        [read_projection_matrix(p) for p in cam_paths[: len(img_paths)]]
+    )
+
+    if downsample > 1:
+        images = images[:, ::downsample, ::downsample]
+        Ps = Ps.copy()
+        Ps[:, :2] /= downsample
+
+    bbox_min = bbox_max = None
+    bbox_path = os.path.join(scan_dir, "bbox.txt")
+    if os.path.exists(bbox_path):
+        bb = np.loadtxt(bbox_path).reshape(2, 3)
+        bbox_min, bbox_max = bb[0], bb[1]
+
+    return Scan(
+        images=images,
+        Ps=Ps,
+        bbox_min=bbox_min,
+        bbox_max=bbox_max,
+        name=os.path.basename(os.path.normpath(scan_dir)),
+    )
+
+
+def write_scan(
+    scan_dir: str,
+    images: np.ndarray,
+    Ps: np.ndarray,
+    bbox_min: Optional[np.ndarray] = None,
+    bbox_max: Optional[np.ndarray] = None,
+) -> None:
+    """Write a scan in the generic layout (test fixtures / dataset export)."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(scan_dir, "images"), exist_ok=True)
+    os.makedirs(os.path.join(scan_dir, "cams"), exist_ok=True)
+    for i, (img, P) in enumerate(zip(images, Ps)):
+        u8 = np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8)
+        Image.fromarray(u8).save(
+            os.path.join(scan_dir, "images", f"{i:03d}.png")
+        )
+        write_projection_matrix(
+            os.path.join(scan_dir, "cams", f"pos_{i:03d}.txt"), P
+        )
+    if bbox_min is not None and bbox_max is not None:
+        np.savetxt(
+            os.path.join(scan_dir, "bbox.txt"),
+            np.stack([bbox_min, bbox_max]),
+        )

@@ -1,0 +1,119 @@
+"""Port parity: the affine ray-pooling vote (plain version of the kernel).
+
+Against the Pallas vote kernel in interpret mode: agreement >= 0.995 (the
+bar of tests/test_pallas.py).  Against the sum of the reference's XLA
+``ray_max_mask_affine`` over the active views: exactly equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surfacenet_tpu.ops.pallas.affine_pool import ray_vote_affine_pallas
+from surfacenet_tpu.ops.ray_pooling import ray_max_mask_affine as j_mask
+from surfacenet_tpu_torch.ops.cuda.affine_vote import (
+    affine_vote, ray_vote_affine,
+)
+from surfacenet_tpu_torch.ops.ray_pooling import (
+    _projection_jacobian, ray_max_mask_affine, vote_params,
+)
+
+torch.set_num_threads(2)
+
+D, S, N, K = 16, 2.0, 4, 3
+
+
+@pytest.fixture(scope="module")
+def case():
+    from surfacenet_tpu.data.synthetic import make_sphere_scene
+
+    scene = make_sphere_scene(n_views=4, hw=(96, 128))
+    rng = np.random.default_rng(2)
+    probs = rng.uniform(size=(N, D, D, D)).astype(np.float32)
+    origins = np.array([[-16.0, -16.0, -16.0], [0.0, -16.0, 0.0],
+                        [-30.0, 5.0, -10.0], [4.0, 4.0, -20.0]], np.float32)
+    views = rng.integers(0, 4, (N, K))
+    Ps_pool = scene.Ps[views].astype(np.float32)
+    mask = np.ones((N, K), bool)
+    mask[0, 2] = False  # padded slots must not vote
+    mask[3, 1] = False
+    return probs, origins, Ps_pool, mask
+
+
+def _port(case, window):
+    probs, origins, Ps_pool, mask = case
+    return ray_vote_affine(
+        torch.tensor(probs), torch.tensor(origins), S,
+        torch.tensor(Ps_pool), torch.tensor(mask), window=window,
+    ).numpy()
+
+
+@pytest.mark.parametrize("window", [0, 2])
+def test_vote_matches_pallas_interpret(case, window):
+    probs, origins, Ps_pool, mask = case
+    ref = np.asarray(ray_vote_affine_pallas(
+        jnp.asarray(probs), jnp.asarray(origins), S, jnp.asarray(Ps_pool),
+        jnp.asarray(mask), window=window, interpret=True,
+    ))
+    got = _port(case, window)
+    assert got.dtype == np.int32 and got.shape == (N, D, D, D)
+    assert (got == ref).mean() >= 0.995
+
+
+@pytest.mark.parametrize("window", [0, 1, 2])
+def test_vote_equals_summed_xla_masks(case, window):
+    probs, origins, Ps_pool, mask = case
+    ref = np.zeros((N, D, D, D), np.int64)
+    for i in range(N):
+        for k in range(K):
+            if mask[i, k]:
+                m = np.asarray(j_mask(
+                    jnp.asarray(probs[i]), jnp.asarray(origins[i]), S,
+                    jnp.asarray(Ps_pool[i, k]), window=window,
+                ))
+                ref[i] += m
+                single = ray_max_mask_affine(
+                    torch.tensor(probs[i]), torch.tensor(origins[i]), S,
+                    torch.tensor(Ps_pool[i, k]), window=window,
+                ).numpy()
+                np.testing.assert_array_equal(single, m)
+    np.testing.assert_array_equal(_port(case, window), ref)
+
+
+def test_vote_params_match_reference_slopes(case):
+    from surfacenet_tpu.ops.ray_pooling import _projection_jacobian as j_jac
+
+    probs, origins, Ps_pool, mask = case
+    centers = origins + 0.5 * D * S
+    A_j = np.stack([np.stack([
+        np.asarray(j_jac(jnp.asarray(Ps_pool[i, k]), jnp.asarray(centers[i])))
+        for k in range(K)]) for i in range(N)])
+    A_t = _projection_jacobian(torch.tensor(Ps_pool),
+                               torch.tensor(centers)[:, None]).numpy()
+    np.testing.assert_allclose(A_t, A_j, rtol=1e-5, atol=1e-9)
+    axis, slopes = vote_params(torch.tensor(origins), S,
+                               torch.tensor(Ps_pool), torch.tensor(mask), D)
+    n = np.cross(A_j[..., 0, :], A_j[..., 1, :])
+    ref_axis = np.where(mask, np.argmax(np.abs(n), axis=-1), -1)
+    np.testing.assert_array_equal(axis.numpy(), ref_axis)
+    assert axis.dtype == torch.int32 and slopes.shape == (N, K, 2)
+    assert (slopes.abs() <= 1).all()
+
+
+def test_boundary_voxels_with_rays_leaving_the_cube_vote():
+    """A voxel whose sheared ray position leaves the cube has ray max NEG,
+    so every active view counts it (the reference's face rule)."""
+    fused = torch.rand((1, 8, 8, 8), generator=torch.Generator().manual_seed(0))
+    axis = torch.tensor([[2]], dtype=torch.int32)
+    slopes = torch.tensor([[[1.0, 0.0]]])
+    votes = affine_vote(fused, axis, slopes, window=0)
+    # slab t is shifted by t - 4 along x: x + (t - 4) outside [0, 8) votes
+    x = torch.arange(8)[:, None]
+    t = torch.arange(8)[None, :]
+    outside = ((x + t - 4) < 0) | ((x + t - 4) >= 8)
+    assert (votes[0, :, 0, :][outside] == 1).all()
+    assert (votes[0, :, 0, :][~outside] == 0).any()
+    inactive = affine_vote(fused, torch.tensor([[-1]], dtype=torch.int32),
+                           slopes, window=0)
+    assert (inactive == 0).all()

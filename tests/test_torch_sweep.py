@@ -1,0 +1,257 @@
+"""Port parity: one cube batch step and the whole sweep.
+
+``cube_batch_step`` against the reference's kernel path (Pallas gather and
+Pallas affine vote in interpret mode, float32 gather, windows covering the
+images): occupancy agreement >= 0.995, fused probability within 1e-4.
+``run_sweep`` end to end against the reference's CPU sweep: voxel-set
+agreement >= 0.99 of the exported points.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import surfacenet_tpu.pipeline.sweep as J
+import surfacenet_tpu_torch.pipeline.sweep as T
+from surfacenet_tpu.config import (
+    Config, FusionConfig, ModelConfig, SweepConfig, VoxelConfig,
+)
+from surfacenet_tpu_torch.config import Config as TConfig
+
+torch.set_num_threads(2)
+
+D, S = 16, 2.0
+
+
+@pytest.fixture(scope="module")
+def scene():
+    from surfacenet_tpu.data.synthetic import make_sphere_scene
+
+    return make_sphere_scene(n_views=4, hw=(96, 128))
+
+
+@pytest.fixture(scope="module")
+def batch(scene):
+    from surfacenet_tpu.ops.view_pairs import (
+        dedup_view_slots, select_pairs_geometric,
+    )
+
+    origins = np.array([[-16.0, -16.0, -16.0], [0.0, 0.0, -16.0],
+                        [-16.0, 0.0, 0.0], [0.0, 0.0, 0.0]], np.float32)
+    hw = scene.images.shape[1:3]
+    pair_idx, pair_w = select_pairs_geometric(scene.Ps, origins, 2, hw,
+                                              extent_mm=D * S)
+    uniq, slots = dedup_view_slots(pair_idx)
+    grid = np.array([[0, 0, 0], [1, 1, 0], [0, 1, 1], [1, 1, 1]])
+    core = J.core_bounds_for(grid, np.array([1, 1, 1]), D, 8, present=grid)
+    return dict(origins=origins, pair_idx=np.asarray(pair_idx, np.int32),
+                pair_w=np.asarray(pair_w, np.float32), core_bounds=core,
+                uniq_views=uniq, slot_idx=slots)
+
+
+def _port_args(batch):
+    """The port's batch arguments: the reference's without ``pair_idx``."""
+    return {k: torch.tensor(v) for k, v in batch.items() if k != "pair_idx"}
+
+
+def _tiny_predictors():
+    """The same tiny float32 SurfaceNet weights on both sides."""
+    from surfacenet_tpu.models.surfacenet import SurfaceNet as JNet
+    from surfacenet_tpu_torch.models.convert import params_from_jax
+    from surfacenet_tpu_torch.models.surfacenet import (
+        SurfaceNet, make_predictor,
+    )
+
+    jcfg = ModelConfig.tiny()
+    jnet = JNet(jcfg)
+    variables = jax.jit(lambda k, x: jnet.init(k, x, train=False))(
+        jax.random.PRNGKey(3), jnp.zeros((1, 8, 8, 8, 6)))
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+
+    def j_pred(x, origins):
+        return jnet.apply(variables, x, train=False)
+
+    tcfg = TConfig.from_json(Config(model=jcfg).to_json()).model
+    net = SurfaceNet(tcfg)
+    net.load_state_dict(params_from_jax(variables))
+    return j_pred, make_predictor(net, tcfg, "cpu")
+
+
+@pytest.mark.parametrize("predictor,adaptive", [
+    ("photoconsistency", False), ("tiny_net", False),
+    ("photoconsistency", True),
+])
+def test_cube_batch_step_matches_pallas_path(scene, batch, predictor,
+                                             adaptive):
+    if predictor == "photoconsistency":
+        j_pred, t_pred = J.photoconsistency_predictor, \
+            T.photoconsistency_predictor
+    else:
+        j_pred, t_pred = _tiny_predictors()
+    H, W = scene.images.shape[1:3]
+    kw = dict(D=D, s=S, n_pairs=2, tau=0.3, gamma=0.6, adaptive=adaptive,
+              center_colors=True, n_pool_views=3, pool_window=2)
+    ref = J.cube_batch_step(
+        jnp.asarray(scene.images), jnp.asarray(scene.Ps, jnp.float32),
+        **{k: jnp.asarray(v) for k, v in batch.items()}, predict=j_pred,
+        use_pallas=True,
+        ray_pool_mode="affine_pallas", pallas_interpret=True,
+        crop_hw=(H, W), gather_dtype="float32", **kw,
+    )
+    got = T.cube_batch_step(
+        torch.tensor(scene.images), torch.tensor(scene.Ps,
+                                                 dtype=torch.float32),
+        **_port_args(batch), predict=t_pred, **kw,
+    )
+    occ_j, fused_j, color_j = (np.asarray(a) for a in ref)
+    occ_t, fused_t, color_t = (a.numpy() for a in got)
+    assert occ_t.shape == (4, D, D, D) and color_t.shape == (4, D, D, D, 3)
+    assert np.abs(fused_t - fused_j).max() <= 1e-4
+    assert (occ_t == occ_j).mean() >= 0.995
+    assert occ_t.any()
+    assert np.abs(color_t - color_j).max() <= 1e-4
+
+
+def test_compact_records_round_trip_like_reference(scene, batch):
+    kw = dict(D=D, s=S, n_pairs=2, tau=0.3, gamma=0.6, adaptive=False,
+              center_colors=True, n_pool_views=3, pool_window=2,
+              compact_k=300)
+    images = torch.tensor(scene.images)
+    Ps = torch.tensor(scene.Ps, dtype=torch.float32)
+    args = _port_args(batch)
+    occ, fused, color = T.cube_batch_step(
+        images, Ps, **args, predict=T.photoconsistency_predictor, **kw)
+    rec, counts = T.cube_batch_step(
+        images, Ps, **args, predict=T.photoconsistency_predictor,
+        compact_output=True, **kw)
+    assert rec.dtype == torch.uint8 and rec.shape == (4, 300, 7)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  occ.reshape(4, -1).sum(1).numpy())
+    # the reference's record builder on the same dense volumes
+    idx_bits = (D ** 3 - 1).bit_length()
+    rec_j, counts_j = J._compact_records(
+        jnp.asarray(occ.numpy()), jnp.asarray(fused.numpy()),
+        jnp.asarray(color.numpy()), D=D, K=300, idx_bits=idx_bits)
+    np.testing.assert_array_equal(rec.numpy(), np.asarray(rec_j))
+    o, f, c = T.unpack_compact(rec.numpy(), counts.numpy(), D)
+    full = counts.numpy() <= 300
+    np.testing.assert_array_equal(o[full], occ.numpy()[full])
+    assert np.abs(f[full][o[full]] - fused.numpy()[full][o[full]]).max() \
+        <= 0.5 / 255 + 1e-6
+
+
+def _configs(**sweep_kw):
+    cfg = Config(
+        voxel=VoxelConfig(cube_size=D, voxel_size_mm=S, overlap=4),
+        fusion=FusionConfig(n_view_pairs=2, tau=0.25, ray_pool_mode="affine"),
+        sweep=SweepConfig(cube_batch=8, **sweep_kw),
+    )
+    return cfg, TConfig.from_json(cfg.to_json())
+
+
+def _voxel_agreement(a, b):
+    A = set(map(tuple, np.round(a, 3)))
+    B = set(map(tuple, np.round(b, 3)))
+    return len(A & B) / max(len(A | B), 1)
+
+
+def test_run_sweep_matches_reference(scene):
+    jcfg, tcfg = _configs(compact_k=20)  # small: exercises the re-fetch
+    js, jstats = J.run_sweep(scene.images, scene.Ps, scene.bbox_min,
+                             scene.bbox_max, jcfg,
+                             J.photoconsistency_predictor)
+    ts, tstats = T.run_sweep(scene.images, scene.Ps, scene.bbox_min,
+                             scene.bbox_max, tcfg,
+                             T.photoconsistency_predictor, device="cpu")
+    pj, _, cj = js.merge()
+    pt, _, ct = ts.merge()
+    assert len(pt) > 200
+    assert tstats.n_cubes_after_prefilter == jstats.n_cubes_after_prefilter
+    assert tstats.n_cubes_nonempty == jstats.n_cubes_nonempty
+    assert tstats.n_refetched > 0
+    assert _voxel_agreement(pt, pj) >= 0.99
+
+
+def test_run_sweep_with_refinement_and_kernel_path_config(scene):
+    """The preset's switches (kernel-path gather in bf16, affine_pallas,
+    refinement on) run on the CPU through the plain versions."""
+    _, tcfg = _configs(use_pallas_gather=True, refine_calib=True,
+                       refine_calib_steps=2, refine_calib_probes=128)
+    tcfg = tcfg.replace(fusion=dataclasses.replace(
+        tcfg.fusion, ray_pool_mode="affine_pallas"))
+    assert T.sweep_gather_dtype(tcfg) == torch.bfloat16
+    store, stats = T.run_sweep(scene.images, scene.Ps, scene.bbox_min,
+                               scene.bbox_max, tcfg,
+                               T.photoconsistency_predictor, device="cpu")
+    assert stats.refine_info["passes"] >= 1
+    assert stats.Ps.dtype == np.asarray(scene.Ps).dtype
+    pts, probs, colors = store.merge()
+    assert len(pts) > 200 and np.isfinite(pts).all()
+    assert ((0 <= colors) & (colors <= 1)).all()
+
+
+def test_sweep_rejects_unported_branches(scene):
+    _, tcfg = _configs()
+    for fusion in (dict(fusion_mode="consensus"), dict(ray_pool_mode="exact")):
+        bad = tcfg.replace(fusion=dataclasses.replace(tcfg.fusion, **fusion))
+        with pytest.raises(NotImplementedError):
+            T.run_sweep(scene.images, scene.Ps, scene.bbox_min,
+                        scene.bbox_max, bad, T.photoconsistency_predictor,
+                        device="cpu")
+
+
+def test_host_planning_matches_reference():
+    jcfg, tcfg = _configs()
+    lo, hi = np.array([-40.0, -35.0, -30.0]), np.array([40.0, 30.0, 45.0])
+    g_t, o_t = T.enumerate_cubes(lo, hi, tcfg)
+    g_j, o_j = J.enumerate_cubes(lo, hi, jcfg)
+    np.testing.assert_array_equal(g_t, g_j)
+    np.testing.assert_array_equal(o_t, o_j)
+    present = g_t[np.random.default_rng(0).uniform(size=len(g_t)) > 0.3]
+    for pres in (None, present):
+        np.testing.assert_array_equal(
+            T.core_bounds_for(g_t, g_t.max(0), D, 4, present=pres),
+            J.core_bounds_for(g_t, g_t.max(0), D, 4, present=pres),
+        )
+    for w, ov in ((-1, 8), (-1, 1), (1, 8)):
+        c = jcfg.replace(
+            voxel=dataclasses.replace(jcfg.voxel, overlap=ov),
+            fusion=dataclasses.replace(jcfg.fusion, pool_window_vox=w))
+        assert T.resolve_pool_window(TConfig.from_json(c.to_json())) == \
+            J.resolve_pool_window(c)
+    for k in (0, 100):
+        assert T.resolve_compact_k(k, 64) == J._resolve_compact_k(k, 64)
+
+
+@pytest.mark.parametrize("vote", [0.0, 0.5, 0.7])
+def test_sparse_store_merge_matches_reference(vote):
+    """Overlapping cubes, some processed but empty: the occupancy vote over
+    containing cubes, and the probability/colour averages."""
+    from surfacenet_tpu.pipeline.sparse import CubeResult as JResult
+    from surfacenet_tpu.pipeline.sparse import SparseCubeStore as JStore
+    from surfacenet_tpu_torch.pipeline.sparse import (
+        CubeResult, SparseCubeStore,
+    )
+
+    rng = np.random.default_rng(5)
+    Dc, stride = 8, 6
+    kw = dict(scene_origin=np.array([-3.0, 1.0, 2.0]), voxel_size_mm=0.5,
+              cube_size=Dc, stride=stride, occupancy_vote=vote)
+    js, ts = JStore(**kw), SparseCubeStore(**kw)
+    for g in [(0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 1), (2, 0, 1)]:
+        occ = rng.uniform(size=(Dc,) * 3) > (0.6 if g != (2, 0, 1) else 1.1)
+        prob = rng.uniform(size=(Dc,) * 3).astype(np.float32)
+        col = rng.uniform(size=(Dc,) * 3 + (3,)).astype(np.float32)
+        js.add(JResult(g, occ, prob, col))
+        ts.add(CubeResult(g, occ, prob, col))
+    pj, qj, cj = js.merge()
+    pt, qt, ct = ts.merge()
+    oj, ot = np.lexsort(pj.T), np.lexsort(pt.T)
+    np.testing.assert_array_equal(pt[ot], pj[oj])
+    np.testing.assert_allclose(qt[ot], qj[oj], atol=1e-6)
+    np.testing.assert_allclose(ct[ot], cj[oj], atol=1e-6)
+    assert len(pt) > 0
