@@ -14,18 +14,36 @@ the run with a non-zero exit code and no result line):
      kernels were launched by this run;
   5. the same sweep with the photoconsistency predictor: points must come
      out, and their distance to the analytic sphere is reported;
-  6. each kernel against its plain PyTorch version at the first batch's
-     own inputs, with CUDA-event times, the card's bound and, for the
-     gather, ``F.grid_sample``'s time on the same projected points; then
-     the device time of one warm batch step split into model, kernels
+  6. the gather and the vote against their plain PyTorch versions at the
+     first batch's own inputs, with CUDA-event times, the card's bound and,
+     for the gather, ``F.grid_sample``'s time on the same projected points;
+     then the device time of one warm batch step split into model, kernels
      and the rest;
-  7. the result line.
+  7. main path, fused inference: the same ``reconstruct_scan`` with
+     ``model.fused_inference`` on, a fast64 SurfaceNet with seeded random
+     weights and seeded non-identity BatchNorm statistics; fails unless the
+     conv kernel ran 7 times a forward (a positive multiple of 7, at least
+     7 per batch) and the gather and the vote ran too;
+  8. the conv kernel against its plain version at each of the forward's
+     seven layer shapes (120 items), with its time, its bound and cuDNN's
+     time for the same layer (``F.conv3d``, bf16, channels-last, bias and
+     ReLU: timed only, never called by the port); then the whole fused
+     forward, kernel route against plain route and against the unfused
+     cuDNN forward with the same weights, and the warm fused batch step's
+     breakdown;
+  9. the affine-pool mask through its public entry,
+     ``ray_max_mask_affine_cuda``, at the first fused batch's volumes x its
+     6 pooling views, windows 0 and 2, against its plain version; the masks
+     summed over each cube's active views must equal the vote kernel's
+     votes;
+  10. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  Writes only to a temporary directory and to the
 package's git-ignored build directory.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,13 +60,20 @@ from surfacenet_tpu_torch.data.dtu import Scan
 from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
 from surfacenet_tpu_torch.geometry.camera import project_rows
 from surfacenet_tpu_torch.models.surfacenet import (
-    forward_flops, init_surfacenet, make_predictor,
+    forward_flops, fused_infer_apply, fused_params, init_surfacenet,
+    make_predictor,
 )
+from surfacenet_tpu_torch.ops.conv3d import conv3d_plain
 from surfacenet_tpu_torch.ops.cuda import _build
+from surfacenet_tpu_torch.ops.cuda.affine_pool import (
+    affine_pool, ray_max_mask_affine_cuda,
+)
 from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_vote
+from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
 from surfacenet_tpu_torch.ops.cvc import build_cvc_views
 from surfacenet_tpu_torch.ops.ray_pooling import (
+    item_params, ray_max_mask_affine_batch, ray_max_mask_affine_plain,
     ray_vote_affine_plain, vote_params,
 )
 from surfacenet_tpu_torch.pipeline.sweep import (
@@ -91,15 +116,51 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, peak_ops=PEAK_F32_S):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def reset_counts():
-    warp_gather.launches = 0
-    affine_vote.launches = 0
+    for kernel in (warp_gather, affine_vote, conv3d, affine_pool):
+        kernel.launches = 0
+
+
+def within_one_bf16_ulp(got, ref):
+    """Share of outputs with |got - ref| <= 2^-7 |ref| + 1e-3 rms(ref)."""
+    ref = ref.float()
+    diff = (got.float() - ref).abs_()
+    tol = ref.abs().mul_(2.0**-7).add_(1e-3 * ref.pow(2).mean().sqrt())
+    return (diff <= tol).float().mean().item(), diff.max().item()
+
+
+def seed_bn_stats(model, gen):
+    """Non-identity BatchNorm statistics drawn from ``gen``: without them
+    folding BatchNorm into the convs would be the identity."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model
+
+
+def conv_layers(mcfg, D):
+    """(R, Cin, Cout, dil) of each 3^3 conv of one SurfaceNet forward."""
+    layers, R, cin = [], D, mcfg.in_channels
+    for ch, n_convs, dil, do_pool in zip(
+        mcfg.block_channels, mcfg.convs_per_block, mcfg.dilations,
+        mcfg.pool_after_block,
+    ):
+        for i in range(n_convs):
+            layers.append((R, cin if i == 0 else ch, ch, dil))
+        cin = ch
+        if do_pool:
+            R //= 2
+    return layers
 
 
 def main() -> int:
@@ -300,6 +361,191 @@ def main() -> int:
         "run_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log(f"batch step breakdown {json.dumps(breakdown)}")
+    del fused, votes_k, votes_p
+    torch.cuda.empty_cache()
+
+    phase(7, "main path, fused inference: reconstruct_scan, dtu9_full, "
+          "seeded fast64 net with seeded BatchNorm statistics")
+    cfg_f = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  fused_inference=True))
+    gen = torch.Generator().manual_seed(1)
+    model_f = seed_bn_stats(init_surfacenet(cfg_f.model, gen), gen)
+    predictor_f = make_predictor(model_f, cfg_f.model, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    n_pts_f, stats_f, timings_f = reconstruct_scan(
+        scan, cfg_f, predictor_f, f"{tmp.name}/fused.ply", dev
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_f = {"conv3d": conv3d.launches,
+                  "warp_gather": warp_gather.launches,
+                  "affine_vote": affine_vote.launches}
+    n_layers = len(conv_layers(cfg.model, D))
+    log(f"stages {json.dumps(timings_f)} total {wall:.3f} s")
+    log(f"cubes {stats_f.n_cubes_after_prefilter}/{stats_f.n_cubes_total} "
+        f"in {stats_f.n_batches} batches, "
+        f"{stats_f.n_cubes_after_prefilter / stats_f.sweep_s:.2f} cubes/s "
+        f"(sweep stage), non-empty {stats_f.n_cubes_nonempty}, points "
+        f"{n_pts_f}")
+    log(f"kernel launches in the fused main path: {json.dumps(launches_f)}")
+    if (launches_f["conv3d"] <= 0 or launches_f["conv3d"] % n_layers
+            or launches_f["conv3d"] < n_layers * stats_f.n_batches):
+        raise RuntimeError(
+            f"fused main path launched the conv kernel "
+            f"{launches_f['conv3d']} times for {stats_f.n_batches} batches "
+            f"of {n_layers} convs")
+    for name in ("warp_gather", "affine_vote"):
+        if launches_f[name] <= 0:
+            raise RuntimeError(f"fused main path did not launch {name}")
+
+    phase(8, "conv kernel against its plain version at the forward's "
+          "seven layer shapes; the fused forward")
+    net_items = B * cfg.fusion.n_view_pairs
+    gen_d = torch.Generator(dev).manual_seed(2)
+    layers = []
+    for R, cin, cout, dil in conv_layers(cfg.model, D):
+        xl = torch.randn((net_items, R, R, R, cin), device=dev,
+                         generator=gen_d).to(torch.bfloat16)
+        wl = (torch.randn((27 * cin, cout), device=dev, generator=gen_d)
+              / (27 * cin) ** 0.5).to(torch.bfloat16)
+        bl = torch.randn((cout,), device=dev, generator=gen_d) * 0.1
+        got = conv3d(xl, wl, bl, dil=dil)
+        ref = conv3d_plain(xl, wl, bl, dil)
+        torch.cuda.synchronize()
+        share, err = within_one_bf16_ulp(got, ref)
+        del got, ref
+        k_ms = cuda_ms(lambda: conv3d(xl, wl, bl, dil=dil), iters=3,
+                       warmup=1)
+        p_ms = cuda_ms(lambda: conv3d_plain(xl, wl, bl, dil), iters=1,
+                       warmup=0)
+        # library yardstick: cuDNN's bf16 conv in channels-last layout
+        xc = xl.permute(0, 4, 1, 2, 3)
+        wc = wl.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
+            memory_format=torch.channels_last_3d)
+        bc = bl.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.conv3d(xc, wc, bc, padding=dil,
+                                          dilation=dil).relu_(),
+                         iters=3, warmup=1)
+        M = net_items * R**3
+        flops = 2 * M * cout * 27 * cin
+        n_bytes = (xl.numel() * 2 + wl.numel() * 2 + bl.numel() * 4
+                   + M * cout * 2)
+        b_ms, b_by = bound(n_bytes, flops, PEAK_BF16_S)
+        layer = {"R": R, "cin": cin, "cout": cout, "dil": dil,
+                 "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "tflop": flops / 1e12, "gb": n_bytes / 1e9,
+                 "within_one_bf16_ulp": share, "max_abs_err": err}
+        layers.append(layer)
+        log(f"conv3d layer {json.dumps(layer)}")
+        del xl, wl, bl, xc, wc, bc
+        torch.cuda.empty_cache()
+        if share < 0.9999:
+            raise RuntimeError(
+                f"conv3d disagrees with its plain version at R {R}, "
+                f"{cin}->{cout}, dil {dil}: {share:.6f} within one bf16 ulp")
+
+    x = torch.randn((net_items, D, D, D, 6), device=dev,
+                    generator=gen_d).to(torch.bfloat16)
+    params_f = fused_params(model_f.state_dict(), cfg_f.model, dev)
+    with torch.inference_mode():
+        p_kernel = predictor_f(x, None)
+        p_plain = fused_infer_apply(cfg_f.model, params_f, x,
+                                    conv=conv3d_plain)
+        torch.cuda.synchronize()
+        d_plain = (p_kernel - p_plain).abs().max().item()
+        del p_plain
+        # the unfused cuDNN forward with the same weights (moves model_f
+        # to the card in bf16)
+        unfused = make_predictor(model_f, cfg.model, dev)
+        d_unfused = (p_kernel - unfused(x, None)).abs().max().item()
+    log(f"fused forward, {net_items} items: max |prob diff| kernel vs plain "
+        f"route {d_plain:.3e}, vs unfused cuDNN forward {d_unfused:.3e}; "
+        f"probabilities in [{p_kernel.min().item():.4f}, "
+        f"{p_kernel.max().item():.4f}]")
+    if not torch.isfinite(p_kernel).all():
+        raise RuntimeError("non-finite probabilities from the fused forward")
+    if d_plain > 1e-2 or d_unfused > 0.03:
+        raise RuntimeError("the fused forward disagrees")
+    del p_kernel, unfused
+
+    batch_f = plan_sweep(stats_f.Ps, scene.bbox_min, scene.bbox_max,
+                         scene.images.shape[1:3], cfg, dev).batch(
+        slice(0, B), dev)
+    Ps_f = torch.as_tensor(stats_f.Ps, dtype=torch.float32, device=dev)
+    step_kw_f = dict(step_kw, predict=predictor_f)
+    step_ms_f = cuda_ms(lambda: cube_batch_step(
+        images_g, Ps_f, *batch_f, compact_output=True, **step_kw_f),
+        iters=3, warmup=1)
+    model_ms_f = cuda_ms(lambda: predictor_f(x, None), iters=3, warmup=1)
+    conv_ms = sum(layer["ms"] for layer in layers)
+    breakdown_f = {
+        "cubes": B, "step_ms": step_ms_f, "model_ms": model_ms_f,
+        "conv_kernel_ms": conv_ms,
+        "conv_library_ms": sum(layer["library_ms"] for layer in layers),
+        "model_tflop": model_flops / 1e12,
+        "model_mfu_bf16": model_flops / (model_ms_f * 1e-3) / PEAK_BF16_S,
+        "cubes_per_s": B / step_ms_f * 1e3,
+    }
+    log(f"fused batch step breakdown {json.dumps(breakdown_f)}")
+    log(f"unfused batch step breakdown {json.dumps(breakdown)}")
+    del x
+
+    phase(9, "affine-pool mask kernel through ray_max_mask_affine_cuda, "
+          "first fused batch x its pooling views")
+    origins_f, uniq_f = batch_f[0], batch_f[3]
+    _, fused_f, _ = cube_batch_step(images_g, Ps_f, *batch_f, **step_kw_f)
+    pool_views, view_mask = pool_views_for(
+        uniq_f, cfg.fusion.n_pool_views, cfg.fusion.n_view_pairs
+    )
+    Kp = pool_views.shape[1]
+    probs_i = fused_f.repeat_interleave(Kp, dim=0).contiguous()
+    orig_i = origins_f.repeat_interleave(Kp, dim=0)
+    Ps_i = Ps_f[pool_views.reshape(-1).long()]
+    axis_v, slopes_v = vote_params(origins_f, s, Ps_f[pool_views.long()],
+                                   view_mask, D)
+    windows = (0, window)
+    reset_counts()
+    masks = {w: ray_max_mask_affine_cuda(probs_i, orig_i, s, Ps_i, w)
+             for w in windows}
+    torch.cuda.synchronize()
+    pool_launches = affine_pool.launches
+    axis_i, slopes_i = item_params(orig_i, s, Ps_i, D)
+    pool_runs = []
+    for w in windows:
+        mk = masks[w]
+        mp = ray_max_mask_affine_batch(probs_i, orig_i, s, Ps_i, w)
+        agree_m = (mk == mp).float().mean().item()
+        err_m = float((mk != mp).any().item())
+        sums = (mk.reshape(-1, Kp, D, D, D)
+                & view_mask[:, :, None, None, None]).sum(dim=1,
+                                                         dtype=torch.int32)
+        votes_eq = torch.equal(sums, affine_vote(fused_f.contiguous(),
+                                                 axis_v, slopes_v, w))
+        del mp, sums
+        m_ms = cuda_ms(lambda: affine_pool(probs_i, axis_i, slopes_i, w),
+                       iters=20)
+        mp_ms = cuda_ms(lambda: ray_max_mask_affine_plain(
+            probs_i, axis_i, slopes_i, w), iters=3, warmup=1)
+        n_vox = probs_i.numel()
+        max_ops = (D - 1) / D if w <= 0 else 2 * w
+        m_bytes = (n_vox * 4 + n_vox + axis_i.numel() * 4
+                   + slopes_i.numel() * 4)
+        m_bound, m_by = bound(m_bytes, n_vox * (max_ops + 1))
+        run = {"window": w, "items": int(probs_i.shape[0]),
+               "mask_agreement": agree_m, "max_abs_err": err_m,
+               "sums_equal_votes": votes_eq,
+               "ms": m_ms, "plain_ms": mp_ms, "bound_ms": m_bound,
+               "bound_by": m_by}
+        pool_runs.append(run)
+        log(f"affine_pool {json.dumps(run)}")
+        if agree_m < 0.9999 or not votes_eq:
+            raise RuntimeError(f"affine_pool disagrees at window {w}")
+    if pool_launches != len(windows):
+        raise RuntimeError(f"ray_max_mask_affine_cuda launched the kernel "
+                           f"{pool_launches} times for {len(windows)} calls")
+    pool_main = pool_runs[-1]  # the sweep's own window
 
     kernels = [
         {
@@ -318,7 +564,33 @@ def main() -> int:
             "launches": launches["affine_vote"], "max_abs_err": v_err,
             "ms": v_ms, "plain_ms": v_plain, "bound_ms": v_bound,
             "bound_by": v_by, "library_ms": None,
-            "vote_agreement": v_agree, "cubes": int(fused.shape[0]),
+            "vote_agreement": v_agree, "cubes": B,
+        },
+        {
+            "name": "conv3d", "route": "cuda",
+            "source": "surfacenet_tpu_torch/csrc/conv3d.cu",
+            "replaces": "surfacenet_tpu/ops/pallas/conv3d.py:78",
+            "launches": launches_f["conv3d"],
+            "max_abs_err": max(layer["max_abs_err"] for layer in layers),
+            # one forward: the seven layers' sums
+            "ms": conv_ms,
+            "plain_ms": sum(layer["plain_ms"] for layer in layers),
+            "bound_ms": sum(layer["bound_ms"] for layer in layers),
+            "bound_by": "operations",
+            "library_ms": breakdown_f["conv_library_ms"],
+            "items": net_items, "layers": layers,
+        },
+        {
+            "name": "affine_pool", "route": "cuda",
+            "source": "surfacenet_tpu_torch/csrc/affine_pool.cu",
+            "replaces": "surfacenet_tpu/ops/pallas/affine_pool.py:48",
+            "path": "ray_max_mask_affine_cuda",
+            "launches": pool_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in pool_runs),
+            "ms": pool_main["ms"], "plain_ms": pool_main["plain_ms"],
+            "bound_ms": pool_main["bound_ms"],
+            "bound_by": pool_main["bound_by"], "library_ms": None,
+            "window": pool_main["window"], "windows": pool_runs,
         },
     ]
     for k in kernels:
@@ -328,7 +600,7 @@ def main() -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(7, "result")
+    phase(10, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

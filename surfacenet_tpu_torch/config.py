@@ -45,8 +45,10 @@ class ModelConfig:
     use_batchnorm: bool = True
     dtype: str = "bfloat16"  # compute dtype (weights are kept in float32)
     upsample_mode: str = "resize"  # side layers: "resize" | "deconv"
-    # BN-folded implicit-GEMM conv kernel for inference; the reference
-    # ships it off in every preset and the port has not ported it yet.
+    # inference through models.surfacenet.fused_infer_apply: BatchNorm
+    # folded into each conv, every 3^3 conv through the implicit-GEMM conv
+    # kernel on the card (its plain version on the CPU); resize side
+    # layers only.  Off in every preset, as in the reference.
     fused_inference: bool = False
 
     @staticmethod

@@ -7,18 +7,9 @@
 // surfacenet_tpu_torch/ops/ray_pooling.py::ray_vote_affine_plain; wrapper:
 // surfacenet_tpu_torch/ops/cuda/affine_vote.py.
 //
-// For cube n and pooling view k with dominant axis a = axis[n][k] >= 0
-// (permutation (o1, o2, a) = (1,2,0), (0,2,1), (0,1,2) for a = 0, 1, 2) and
-// slopes (s0, s1) = slopes[n][k], a voxel with coordinates (x0, x1, t)
-// along (o1, o2, a) has shear offsets oi(t) = rint(s0 * (t - D/2)),
-// oj(t) = rint(s1 * (t - D/2)) (round half to even).  Its ray maximum is
-//   NEG                         if (x0 + oi(t), x1 + oj(t)) leaves the cube,
-//   max over tt of vol[x0 + oi(t) - oi(tt), x1 + oj(t) - oj(tt), tt]
-//                               otherwise, over in-cube positions only, with
-//                               tt over [t - w, t + w] (window w > 0) or the
-//                               whole segment [0, D) (w = 0);
-// and the view votes when vol[x0, x1, t] >= raymax - 1e-6.  votes[n] is the
-// sum over the active views.
+// For cube n, votes[n] counts the active pooling views k (axis[n][k] >= 0,
+// slopes[n][k]) for which each voxel is a ray maximum; the ray-max test
+// (csrc/affine_ray.cuh) is the same as the affine-pool kernel's.
 //
 // Bound on an H100: device-memory bytes, N * D^3 * 4 B read plus the same
 // written; the compares (2w+1 per active view and voxel) are far below the
@@ -32,7 +23,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NEG (-1e30f)
+#include "affine_ray.cuh"
 
 __global__ void affine_vote_kernel(const float* __restrict__ vol,
                                    const int32_t* __restrict__ axis,
@@ -45,37 +36,15 @@ __global__ void affine_vote_kernel(const float* __restrict__ vol,
   const int n = (int)(g / n_vox);
   const int q = (int)(g % n_vox);
   const int c[3] = {q / (D * D), (q / D) % D, q % D};
-  const int stride[3] = {D * D, D, 1};
   const float* p = vol + (size_t)n * n_vox;
   const float pv = p[q];
-  const int half = D / 2;
 
   int count = 0;
   for (int kk = 0; kk < K; ++kk) {
     const int a = axis[n * K + kk];
     if (a < 0) continue;
-    const int d0 = (a == 0) ? 1 : 0;
-    const int d1 = (a == 2) ? 1 : 2;
-    const float s0 = slopes[2 * (n * K + kk) + 0];
-    const float s1 = slopes[2 * (n * K + kk) + 1];
-    const int t = c[a];
-    const int A = c[d0] + (int)rintf(s0 * (float)(t - half));
-    const int B = c[d1] + (int)rintf(s1 * (float)(t - half));
-    if (A < 0 || A >= D || B < 0 || B >= D) {
-      ++count;  // unsheared position outside the cube: raymax is NEG
-      continue;
-    }
-    const int lo = window > 0 ? max(t - window, 0) : 0;
-    const int hi = window > 0 ? min(t + window, D - 1) : D - 1;
-    float m = NEG;
-    for (int tt = lo; tt <= hi; ++tt) {
-      const int ai = A - (int)rintf(s0 * (float)(tt - half));
-      const int bi = B - (int)rintf(s1 * (float)(tt - half));
-      if (ai >= 0 && ai < D && bi >= 0 && bi < D) {
-        m = fmaxf(m, p[ai * stride[d0] + bi * stride[d1] + tt * stride[a]]);
-      }
-    }
-    if (pv >= m - 1e-6f) ++count;
+    count += affine_ray_max(p, c, pv, a, slopes[2 * (n * K + kk) + 0],
+                            slopes[2 * (n * K + kk) + 1], D, window);
   }
   votes[g] = count;
 }

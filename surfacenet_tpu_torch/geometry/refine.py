@@ -7,11 +7,10 @@ probe slack dx and the view shifts duv on a mean-pooled image pyramid.
 The JAX package's module docstring gives the measurements behind each
 design choice.
 
-Differences from the reference, on purpose:
-  * autograd of PyTorch and a hand-written Adam step equal to
-    ``optax.adam`` (b1 0.9, b2 0.999, eps 1e-8, bias-corrected);
-  * ``refine_calibration`` returns the refined matrices in the caller's
-    dtype (the reference returns float32 even for float64 input).
+The optimizer is PyTorch's autograd with a hand-written Adam step equal
+to ``optax.adam`` (b1 0.9, b2 0.999, eps 1e-8, bias-corrected).  Like the
+reference, ``refine_calibration`` applies the shifts to a float32 copy of
+the matrices and returns float32 whatever dtype came in.
 """
 
 from __future__ import annotations
@@ -172,7 +171,9 @@ def _remove_rigid(dx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 class _Adam:
     """``optax.adam``: b1 0.9, b2 0.999, eps 1e-8 (outside the root),
-    bias-corrected moments, update ``p -= lr * m_hat / (sqrt(v_hat) + eps)``."""
+    bias-corrected moments, update ``p -= lr * m_hat / (sqrt(v_hat) + eps)``.
+    Each moment update keeps optax's operation order,
+    ``(1 - b) * g**k + b * t``."""
 
     def __init__(self, param: torch.Tensor, lr: float,
                  b1=0.9, b2=0.999, eps=1e-8):
@@ -185,7 +186,7 @@ class _Adam:
     def step(self, g: torch.Tensor) -> None:
         self.count += 1
         self.m.mul_(self.b1).add_((1 - self.b1) * g)
-        self.v.mul_(self.b2).add_((1 - self.b2) * g * g)
+        self.v.mul_(self.b2).add_((1 - self.b2) * (g * g))
         # bias corrections in float32, as optax computes them
         c1 = 1 - np.float32(self.b1) ** np.float32(self.count)
         c2 = 1 - np.float32(self.b2) ** np.float32(self.count)
@@ -213,8 +214,8 @@ def refine_calibration(
     """Estimate and apply per-view image-space calibration corrections.
 
     ``images`` (V, H, W, 3) may be numpy or a tensor; it is used in float32
-    on ``device``.  Returns (Ps_refined (V, 3, 4) numpy in the dtype of
-    ``Ps``, info dict with ``duv_px``, ``max_shift_px``, ``level_losses``).
+    on ``device``.  Returns (Ps_refined (V, 3, 4) float32 numpy, info
+    dict with ``duv_px``, ``max_shift_px``, ``level_losses``).
     """
     dev = resolve_device(device)
     Ps_np = np.asarray(Ps)
@@ -283,11 +284,11 @@ def refine_calibration(
     duv_np = (duv - duv.mean(dim=0, keepdim=True)).cpu().numpy()
     info["duv_px"] = duv_np
     info["max_shift_px"] = float(np.abs(duv_np).max())
-    dt = Ps_np.dtype if np.issubdtype(Ps_np.dtype, np.floating) else np.float64
+    # float32 whatever came in, as the reference applies the shift to its
+    # float32 copy of the matrices
     Ps_out = apply_uv_shift(
-        torch.as_tensor(Ps_np, dtype=torch.float64),
-        torch.as_tensor(duv_np, dtype=torch.float64),
-    ).numpy().astype(dt)
+        torch.as_tensor(Ps_np, dtype=torch.float32), torch.as_tensor(duv_np),
+    ).numpy()
     return Ps_out, info
 
 

@@ -8,10 +8,16 @@ network over a CVC pair (B, D, D, D, 6), channels last:
                2^3 max-pool after the blocks that pool
     concat sides -> 1^3 conv -> sigmoid -> (B, D, D, D) probability
 
-The reference runs this network as one XLA program, not a Pallas kernel,
-so the port runs it on PyTorch's convolutions (cuDNN on the card), in the
-config's compute dtype, with activations in ``channels_last_3d`` layout:
-the (B, D, D, D, C) input is that layout already, so no copy is made.
+By default the reference runs this network as one XLA program, not a
+Pallas kernel, so ``SurfaceNet`` runs it on PyTorch's convolutions (cuDNN
+on the card), in the config's compute dtype, with activations in
+``channels_last_3d`` layout: the (B, D, D, D, C) input is that layout
+already, so no copy is made.
+
+With ``ModelConfig.fused_inference`` the predictor runs
+``fused_infer_apply`` instead, the reference's inference forward with
+BatchNorm folded into each conv (``fold_bn``) and every 3^3 conv + bias +
+ReLU through the implicit-GEMM conv kernel (``ops/cuda/conv3d.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from surfacenet_tpu_torch.config import ModelConfig
+from surfacenet_tpu_torch.ops.conv3d import pack_conv_weight
+from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
 
 # flax.linen.BatchNorm's default epsilon, which the reference uses
 BN_EPS = 1e-5
@@ -180,19 +188,131 @@ def init_surfacenet(cfg: ModelConfig, generator: torch.Generator) -> SurfaceNet:
     return model.eval()
 
 
+def fold_bn(weight, gamma, beta, mean, var, eps: float = BN_EPS):
+    """Fold inference BatchNorm into the preceding conv (float32).
+
+    y = gamma * (conv(x) - mean) / sqrt(var + eps) + beta
+      = conv(x; weight * inv) + (beta - mean * inv),  inv = gamma / sqrt(var + eps)
+
+    ``weight`` is a torch (out, in, ...) kernel; returns (weight * inv
+    over the output channels, beta - mean * inv).
+    """
+    inv = gamma / torch.sqrt(var + eps)
+    shape = (-1,) + (1,) * (weight.dim() - 1)
+    return weight * inv.reshape(shape), beta - mean * inv
+
+
+def fused_params(state_dict, cfg: ModelConfig, device) -> dict:
+    """``fused_infer_apply``'s parameters from a ``SurfaceNet`` state dict.
+
+    BatchNorm is folded in float32, then each 3^3 kernel is packed into the
+    conv kernel's (27 * Cin, Cout) layout in bf16 with a float32 bias, and
+    the side and head 1^3 weights and biases are cast to ``cfg.dtype``:
+    the values the reference computes on every call, computed once.
+    """
+    sd = {k: v.detach().to("cpu", torch.float32)
+          for k, v in state_dict.items()}
+    dt = DTYPES[cfg.dtype]
+
+    def conv_params(conv, bn):
+        w = sd[conv + "weight"]
+        if cfg.use_batchnorm:
+            return fold_bn(w, sd[bn + "weight"], sd[bn + "bias"],
+                           sd[bn + "running_mean"], sd[bn + "running_var"])
+        return w, sd.get(conv + "bias", torch.zeros(w.shape[0]))
+
+    def put(t, dtype):
+        return t.to(dtype).contiguous().to(device)
+
+    blocks = []
+    for b, (n_convs, dil) in enumerate(zip(cfg.convs_per_block,
+                                           cfg.dilations)):
+        convs = []
+        for i in range(n_convs):
+            w, bias = conv_params(f"blocks.{b}.convs.{i}.",
+                                  f"blocks.{b}.bns.{i}.")
+            convs.append((put(pack_conv_weight(w), torch.bfloat16),
+                          put(bias, torch.float32), dil))
+        sw, sb = conv_params(f"sides.{b}.conv.", f"sides.{b}.bn.")
+        blocks.append({"convs": convs, "side_w": put(sw[:, :, 0, 0, 0].t(), dt),
+                       "side_b": put(sb, dt)})
+    return {"blocks": blocks,
+            "head_w": put(sd["head.weight"][:, :, 0, 0, 0].t(), dt),
+            "head_b": put(sd["head.bias"], dt)}
+
+
+def fused_infer_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                      conv=conv3d) -> torch.Tensor:
+    """Inference forward with conv + folded BN + ReLU fused into one conv.
+
+    Port of the reference's ``fused_infer_apply``, cast for cast: each
+    conv takes bf16 input and its bf16 output is cast to ``cfg.dtype``;
+    side layers are a 1^3 matmul plus bias in ``cfg.dtype``, ReLU and a
+    trilinear resize; max-pool 2^3; the head a matmul plus bias in
+    ``cfg.dtype``, then float32 and sigmoid.  ``params`` come from
+    ``fused_params``; ``conv`` is ``ops.cuda.conv3d.conv3d`` (the kernel
+    on the card, its plain version on the CPU) unless a caller passes the
+    plain version to compare with.
+
+    x (B, D, D, D, in_channels) -> (B, D, D, D) float32 probability.
+    """
+    if cfg.upsample_mode == "deconv":
+        raise NotImplementedError(
+            "fused inference supports upsample_mode='resize'; use "
+            "SurfaceNet for deconv side layers"
+        )
+    dt = DTYPES[cfg.dtype]
+    x = x.to(dt)
+    sides = []
+    scale = 1
+    for blk, do_pool in zip(params["blocks"], cfg.pool_after_block):
+        for w, b, dil in blk["convs"]:
+            x = conv(x.to(torch.bfloat16).contiguous(), w, b, dil=dil,
+                     relu=True).to(dt)
+        # side layer: 1^3 conv (a matmul) + folded BN + relu + resize
+        side = torch.relu(x @ blk["side_w"] + blk["side_b"])
+        if scale > 1:
+            side = F.interpolate(
+                side.permute(0, 4, 1, 2, 3), scale_factor=scale,
+                mode="trilinear", align_corners=False,
+            ).permute(0, 2, 3, 4, 1)
+        sides.append(side)
+        if do_pool:
+            x = F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2, 2).permute(
+                0, 2, 3, 4, 1)
+            scale *= 2
+    h = torch.cat(sides, dim=-1)
+    logits = (h @ params["head_w"] + params["head_b"])[..., 0].float()
+    return torch.sigmoid(logits)
+
+
 def make_predictor(model: SurfaceNet, cfg: ModelConfig, device):
     """Sweep predictor ``(x (B, D, D, D, 6), origins) -> (B, D, D, D)``.
 
-    Moves the model to ``device`` in ``cfg.dtype`` with channels-last
-    weights.  The returned callable carries ``in_dtype`` so the sweep
-    assembles its input batch directly in the model's dtype.
+    With ``cfg.fused_inference`` and resize side layers the predictor runs
+    ``fused_infer_apply`` on ``fused_params(model.state_dict())``: every
+    3^3 conv goes through the conv kernel on the card and through its
+    plain version on the CPU.  (The reference takes this route only off
+    the CPU, because its Pallas kernel cannot run there; the port takes it
+    on the CPU too, which is the route its parity tests drive.)  Otherwise
+    the model moves to ``device`` in ``cfg.dtype`` with channels-last
+    weights and runs ``SurfaceNet.forward``.  The returned callable
+    carries ``in_dtype`` so the sweep assembles its input batch directly
+    in the model's dtype.
     """
-    model = model.to(device=device, dtype=DTYPES[cfg.dtype])
-    model = model.to(memory_format=torch.channels_last_3d).eval()
+    if cfg.fused_inference and cfg.upsample_mode == "resize":
+        params = fused_params(model.state_dict(), cfg, device)
 
-    def predictor(x, origins=None):
-        with torch.inference_mode():
-            return model(x)
+        def predictor(x, origins=None):
+            with torch.inference_mode():
+                return fused_infer_apply(cfg, params, x)
+    else:
+        model = model.to(device=device, dtype=DTYPES[cfg.dtype])
+        model = model.to(memory_format=torch.channels_last_3d).eval()
+
+        def predictor(x, origins=None):
+            with torch.inference_mode():
+                return model(x)
 
     predictor.in_dtype = cfg.dtype
     return predictor

@@ -7,16 +7,18 @@ compiled with ``nvcc`` into a shared library, loaded with ``ctypes``:
          -Xcompiler -fPIC --fmad=false -Xptxas=-v
 
 Libraries go to ``surfacenet_tpu_torch/_build/`` (ignored by git), named by
-a hash of the source and the flags, so an edited source rebuilds and an
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
 unchanged one is reused.  Nothing is built when a module is imported: the
 first ``load`` builds what it needs, and ``build_all`` builds every kernel
 at once with one ``nvcc`` per source running in parallel.  A failed build
 raises with the compiler's output.
 
 ``--fmad=false`` keeps the compiler from contracting a multiply and an add
-into one rounding, so the kernels repeat their plain PyTorch versions'
-float32 arithmetic exactly (the kernels are bound by memory, not by
-arithmetic, so the lost FMAs cost nothing measurable).
+into one rounding, so the gather and the ray-pooling kernels repeat their
+plain PyTorch versions' float32 arithmetic exactly (they are bound by
+memory, not by arithmetic, so the lost FMAs cost nothing measurable).  The
+conv kernel's products and sums run in the tensor cores, where the flag
+changes nothing.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 )))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("warp_gather", "affine_vote")
+KERNELS = ("warp_gather", "affine_vote", "affine_pool", "conv3d")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
@@ -65,10 +67,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(SRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{h[:16]}.so")
+    """Path of kernel ``name``'s library: hashes its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(SRC_DIR, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names: Iterable[str] = KERNELS) -> float:

@@ -1,0 +1,92 @@
+"""Wrapper of the implicit-GEMM conv3d CUDA kernel (``csrc/conv3d.cu``).
+
+Replaces the Pallas TPU kernel ``surfacenet_tpu/ops/pallas/conv3d.py::
+_conv3d_kernel``; ``conv3d`` is the counterpart of ``conv3d_fused`` and
+computes what ``ops/conv3d.py::conv3d_plain`` computes.  The reference
+sends a volume too large for VMEM (the 64^3 first block) to XLA's conv
+instead; that is a TPU limit with the same semantics, so here every layer
+goes through the kernel.  The source file's header states the kernel's
+bound and design.
+
+``conv3d`` runs the plain version for tensors on the CPU and the kernel
+for tensors on a CUDA device; there is no other route.
+``conv3d.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from surfacenet_tpu_torch.ops.conv3d import conv3d_plain
+from surfacenet_tpu_torch.ops.cuda import _build
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def _kernel_fn():
+    fn = _build.load("conv3d").conv3d
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(x, w, b, dil):
+    if x.dim() != 5 or x.dtype != torch.bfloat16:
+        raise ValueError(f"x must be bf16 (B, R, R, R, Cin), got {x.dtype} {tuple(x.shape)}")
+    R, cin = x.shape[1], x.shape[4]
+    if x.shape[2:4] != (R, R):
+        raise ValueError(f"x volumes must be cubes, got {tuple(x.shape)}")
+    if w.dim() != 2 or w.dtype != torch.bfloat16 or w.shape[0] != 27 * cin:
+        raise ValueError(f"w must be bf16 ({27 * cin}, Cout), got {w.dtype} {tuple(w.shape)}")
+    cout = w.shape[1]
+    if b.shape != (cout,) or b.dtype != torch.float32:
+        raise ValueError(f"b must be float32 ({cout},), got {b.dtype} {tuple(b.shape)}")
+    if dil < 1:
+        raise ValueError(f"dilation must be >= 1, got {dil}")
+    for name, t in (("x", x), ("w", w), ("b", b)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_kernel(x, w):
+    """What the kernel alone needs (the plain version takes any Cout)."""
+    if w.shape[1] % 8:
+        raise ValueError(f"Cout must be a multiple of 8, got {w.shape[1]}")
+    for name, t in (("x", x), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dil: int = 1,
+           relu: bool = True) -> torch.Tensor:
+    """SAME 3^3 conv (dilation ``dil``) + bias [+ ReLU]: (B, R, R, R, Cout) bf16.
+
+    x (B, R, R, R, Cin) bf16; w (27 * Cin, Cout) bf16, tap-major rows
+    (``ops.conv3d.pack_conv_weight``); b (Cout,) float32; all contiguous.
+    The kernel also needs Cout a multiple of 8 and 16-byte aligned x, w.
+    """
+    _check(x, w, b, dil)
+    if x.device.type == "cpu":
+        return conv3d_plain(x, w, b, dil, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d: unsupported device {x.device}")
+    _check_kernel(x, w)
+    B, R, cin, cout = x.shape[0], x.shape[1], x.shape[4], w.shape[1]
+    out = torch.empty((B, R, R, R, cout), dtype=torch.bfloat16,
+                      device=x.device)
+    fn = _kernel_fn()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 B, R, cin, cout, int(dil), int(bool(relu)), stream)
+    if err != 0:
+        raise RuntimeError(f"conv3d kernel launch failed: CUDA error {err}")
+    conv3d.launches += 1
+    return out
+
+
+conv3d.launches = 0

@@ -11,9 +11,11 @@ segment for window 0, else +-window slabs).  Positions sheared out of the
 cube are NEG both ways, so a voxel whose ray leaves the cube counts as a
 maximum.
 
-``ray_vote_affine_plain`` is the plain PyTorch version of the affine-vote
-CUDA kernel (``ops/cuda/affine_vote.py``): the sum of the per-view masks
-over the active views of each cube.
+``ray_max_mask_affine_plain`` is the plain PyTorch version of the
+affine-pool CUDA kernel (``ops/cuda/affine_pool.py``): one mask per (cube,
+view) item.  ``ray_vote_affine_plain`` is the plain version of the
+affine-vote CUDA kernel (``ops/cuda/affine_vote.py``): the sum of those
+masks over the active views of each cube.
 """
 
 from __future__ import annotations
@@ -120,16 +122,56 @@ def _ray_max_sheared(p: torch.Tensor, off: torch.Tensor, window: int):
 
 def ray_max_mask_affine(prob, origin, s: float, P, window: int = 0):
     """Affine ray-max mask of one (D, D, D) volume for one view (3, 4)."""
-    D = prob.shape[0]
-    axis, slopes = vote_params(
-        origin[None], s, P[None, None], torch.ones(1, 1, dtype=torch.bool,
-                                                   device=prob.device), D,
-    )
-    a = int(axis[0, 0])
-    perm = PERMS[a]
-    p = prob.permute(*perm)[None]
-    mask = _ray_max_sheared(p, _shear_offsets(slopes[0], D), window)[0]
-    return mask.permute(*np.argsort(perm).tolist())
+    return ray_max_mask_affine_batch(prob[None], origin[None], s, P[None],
+                                     window)[0]
+
+
+def ray_max_mask_affine_plain(
+    probs: torch.Tensor, axis: torch.Tensor, slopes: torch.Tensor,
+    window: int = 0,
+) -> torch.Tensor:
+    """Affine ray-max mask of each item for its one view.
+
+    The plain version of the affine-pool kernel.
+
+    Args:
+      probs: (M, D, D, D) float32 probability volumes.
+      axis: (M,) int32 dominant ray axis per item (an item with none of
+        0, 1, 2 gets an all-False mask).
+      slopes: (M, 2) float32 shear slopes (``vote_params``).
+
+    Returns (M, D, D, D) bool.
+    """
+    D = probs.shape[1]
+    mask = torch.zeros(probs.shape, dtype=torch.bool, device=probs.device)
+    for a, perm in enumerate(PERMS):
+        idx = torch.nonzero(axis == a)[:, 0]
+        if idx.shape[0] == 0:
+            continue
+        p = probs[idx].permute(0, *(1 + q for q in perm))
+        m = _ray_max_sheared(p, _shear_offsets(slopes[idx], D), window)
+        mask[idx] = m.permute(0, *(1 + np.argsort(perm)).tolist())
+    return mask
+
+
+def ray_max_mask_affine_batch(
+    probs: torch.Tensor, origins: torch.Tensor, s: float, Ps: torch.Tensor,
+    window: int = 0,
+) -> torch.Tensor:
+    """``ray_max_mask_affine`` over items: (N, D, D, D) bool.
+
+    probs (N, D, D, D); origins (N, 3); Ps (N, 3, 4) one pooling view per
+    item.  Counterpart of the reference's ``vmap(ray_max_mask_affine)``.
+    """
+    axis, slopes = item_params(origins, s, Ps, probs.shape[1])
+    return ray_max_mask_affine_plain(probs.float(), axis, slopes, window)
+
+
+def item_params(origins, s, Ps, D):
+    """``vote_params`` for one active view per item: axis (N,), slopes (N, 2)."""
+    ones = torch.ones((Ps.shape[0], 1), dtype=torch.bool, device=Ps.device)
+    axis, slopes = vote_params(origins, s, Ps[:, None], ones, D)
+    return axis[:, 0].contiguous(), slopes[:, 0].contiguous()
 
 
 def ray_vote_affine_plain(
@@ -147,16 +189,8 @@ def ray_vote_affine_plain(
 
     Returns votes (N, D, D, D) int32.
     """
-    N, D = fused.shape[0], fused.shape[1]
-    votes = torch.zeros((N, D, D, D), dtype=torch.int32, device=fused.device)
-    for a, perm in enumerate(PERMS):
-        sel = torch.nonzero(axis == a)  # (M, 2) of (cube, view)
-        if sel.shape[0] == 0:
-            continue
-        n_idx, k_idx = sel[:, 0], sel[:, 1]
-        p = fused[n_idx].permute(0, *(1 + q for q in perm))
-        off = _shear_offsets(slopes[n_idx, k_idx], D)
-        mask = _ray_max_sheared(p, off, window)
-        inv = (1 + np.argsort(perm)).tolist()
-        votes.index_add_(0, n_idx, mask.permute(0, *inv).to(torch.int32))
-    return votes
+    n_idx, k_idx = torch.nonzero(axis >= 0).unbind(1)  # active (cube, view)
+    mask = ray_max_mask_affine_plain(fused[n_idx], axis[n_idx, k_idx],
+                                     slopes[n_idx, k_idx], window)
+    votes = torch.zeros(fused.shape, dtype=torch.int32, device=fused.device)
+    return votes.index_add_(0, n_idx, mask.to(torch.int32))

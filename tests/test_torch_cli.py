@@ -62,6 +62,48 @@ def test_reconstruct_cli_preset_with_npz_checkpoint(tmp_path, scan_dir):
     assert np.isfinite(pts).all()
 
 
+def test_reconstruct_cli_fused_inference_runs_the_fused_forward(
+        tmp_path, scan_dir, monkeypatch):
+    """--set model.fused_inference=true reaches the config and routes the
+    predictor through fused_infer_apply: on the CPU every 3^3 conv is the
+    conv kernel's plain version, and SurfaceNet.forward is never called."""
+    import surfacenet_tpu_torch.ops.cuda.conv3d as cuda_conv
+    from surfacenet_tpu_torch.config import ModelConfig
+    from surfacenet_tpu_torch.models.convert import save_npz
+    from surfacenet_tpu_torch.models.surfacenet import (
+        SurfaceNet, init_surfacenet,
+    )
+
+    ckpt = str(tmp_path / "tiny.npz")
+    save_npz(init_surfacenet(ModelConfig.tiny(),
+                             torch.Generator().manual_seed(0)).state_dict(),
+             ckpt)
+    calls = []
+    plain = cuda_conv.conv3d_plain
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape)
+        return plain(*args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the unfused forward ran")
+
+    monkeypatch.setattr(cuda_conv, "conv3d_plain", counted)
+    monkeypatch.setattr(SurfaceNet, "forward", refuse)
+    out = str(tmp_path / "f.ply")
+    main(["reconstruct", "--scan", scan_dir, "--out", out, "--device", "cpu",
+          "--checkpoint", ckpt, *TINY,
+          "--set", "model.block_channels=[8,12,16,16]",
+          "--set", "model.convs_per_block=[1,1,1,1]",
+          "--set", "model.side_channels=4",
+          "--set", 'model.dtype="float32"',
+          "--set", "model.fused_inference=true"])
+    # four convs a forward, one forward per cube batch
+    assert calls and len(calls) % 4 == 0
+    pts, _ = read_ply(out)
+    assert np.isfinite(pts).all()
+
+
 def test_entry_points_refuse_missing_cuda(scan_dir, tmp_path, monkeypatch):
     """Without a card, every entry point raises unless the CPU is asked for."""
     from surfacenet_tpu_torch.cli import reconstruct_scan

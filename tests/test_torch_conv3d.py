@@ -1,0 +1,174 @@
+"""Port parity: the conv kernel's plain version, fold_bn and the fused forward.
+
+Against the reference's Pallas conv in interpret mode: every output within
+one bf16 ulp, |port - ref| <= 2^-7 |ref| + 1e-3 rms(ref) (both sum exact
+bf16 products in float32, in different orders, then round to bf16; the
+second term covers outputs near zero).  ``fold_bn`` on the converted state
+dict: within one float32 ulp of the reference's on the flax params.  The
+fused forward against the reference's ``fused_infer_apply`` (interpret
+mode) at ``ModelConfig.tiny()``: probabilities within 1e-2, because conv
+outputs whose float32 sums differ in order can round to neighbouring bf16
+values.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surfacenet_tpu.config import ModelConfig as JModel
+from surfacenet_tpu.models.surfacenet import SurfaceNet as JSurfaceNet
+from surfacenet_tpu.models.surfacenet import fold_bn as j_fold_bn
+from surfacenet_tpu.models.surfacenet import fused_infer_apply as j_fused
+from surfacenet_tpu.ops.pallas.conv3d import conv3d_pallas
+from surfacenet_tpu_torch.config import ModelConfig as TModel
+from surfacenet_tpu_torch.models.convert import params_from_jax
+from surfacenet_tpu_torch.models.surfacenet import (
+    SurfaceNet, fold_bn, fused_infer_apply, fused_params, make_predictor,
+)
+from surfacenet_tpu_torch.ops.conv3d import conv3d_plain, pack_conv_weight
+from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
+
+torch.set_num_threads(2)
+
+D = 8
+
+
+def within_one_bf16_ulp(got, ref):
+    rms = np.sqrt(np.mean(ref.astype(np.float64) ** 2))
+    return np.abs(got - ref) <= 2.0**-7 * np.abs(ref) + 1e-3 * rms
+
+
+@pytest.mark.parametrize("dil", [1, 2])
+@pytest.mark.parametrize("cin,cout", [(6, 8), (8, 16)])
+def test_conv3d_plain_matches_pallas_interpret(dil, cin, cout):
+    rng = np.random.default_rng(dil * 100 + cin)
+    x = rng.standard_normal((2, D, D, D, cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, cin, cout)) * 0.1).astype(np.float32)
+    b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    ref = np.asarray(conv3d_pallas(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b),
+        dil=dil, relu=True, interpret=True,
+    ), np.float32)
+    wt = torch.tensor(w).permute(4, 3, 0, 1, 2)  # torch (out, in, 3, 3, 3)
+    got = conv3d(torch.tensor(x).to(torch.bfloat16),
+                 pack_conv_weight(wt).to(torch.bfloat16).contiguous(),
+                 torch.tensor(b), dil=dil, relu=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, D, D, D, cout)
+    assert got.is_contiguous()
+    assert within_one_bf16_ulp(got.float().numpy(), ref).all()
+    assert (ref > 0).any() and (ref == 0).any()  # ReLU did cut
+
+
+def test_pack_conv_weight_is_the_dhwio_reshape():
+    w = np.random.default_rng(0).standard_normal((3, 3, 3, 5, 7))
+    packed = pack_conv_weight(torch.tensor(w).permute(4, 3, 0, 1, 2))
+    np.testing.assert_array_equal(packed.numpy(), w.reshape(27 * 5, 7))
+
+
+def test_conv3d_without_relu_and_bad_inputs():
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.standard_normal((1, 4, 4, 4, 8))).to(torch.bfloat16)
+    w = torch.tensor(rng.standard_normal((27 * 8, 16)) * 0.1).to(
+        torch.bfloat16)
+    b = torch.zeros(16)
+    y = conv3d(x, w, b, dil=1, relu=False)
+    assert (y < 0).any()
+    np.testing.assert_array_equal(y.float().numpy(),
+                                  conv3d_plain(x, w, b, 1, False).float()
+                                  .numpy())
+    for bad in (dict(x=x.float()), dict(w=w.float()), dict(b=b.double()),
+                dict(w=w[:-1]), dict(b=b[:8]), dict(x=x[:, :, :3]),
+                dict(x=x.transpose(1, 2)), dict(dil=0)):
+        args = dict(x=x, w=w, b=b, dil=1) | bad
+        with pytest.raises(ValueError):
+            conv3d(**args)
+
+
+@pytest.fixture(scope="module")
+def tiny_variables():
+    """flax tiny SurfaceNet variables as numpy (parameters are float32
+    whatever the compute dtype, so one init serves every case)."""
+    net = JSurfaceNet(JModel.tiny())
+    v = jax.jit(lambda k, x: net.init(k, x, train=False))(
+        jax.random.PRNGKey(0), jnp.zeros((1, D, D, D, 6)))
+    return jax.tree_util.tree_map(np.asarray, v)
+
+
+def _with_bn_stats(v, seed):
+    """Seeded non-identity BatchNorm statistics (as
+    tests/test_conv3d_pallas.py); ``seed`` None keeps the identity ones."""
+    if seed is None:
+        return v
+    rng = np.random.default_rng(seed)
+
+    def stat(a):
+        return (np.abs(rng.standard_normal(a.shape)) * 0.5 + 0.5).astype(
+            np.float32)
+
+    return {"params": v["params"],
+            "batch_stats": jax.tree_util.tree_map(stat, v["batch_stats"])}
+
+
+def test_fold_bn_matches_reference_on_converted_weights(tiny_variables):
+    cfg = JModel.tiny()
+    v = _with_bn_stats(tiny_variables, 2)
+    sd = params_from_jax(v)
+    for b in range(len(cfg.block_channels)):
+        for conv, bn, p, st in (
+            (f"blocks.{b}.convs.0.", f"blocks.{b}.bns.0.",
+             v["params"][f"ConvBlock_{b}"], v["batch_stats"][f"ConvBlock_{b}"]),
+            (f"sides.{b}.conv.", f"sides.{b}.bn.",
+             v["params"][f"SideLayer_{b}"], v["batch_stats"][f"SideLayer_{b}"]),
+        ):
+            wj, bj = j_fold_bn(p["Conv_0"]["kernel"], p["BatchNorm_0"]["scale"],
+                               p["BatchNorm_0"]["bias"],
+                               st["BatchNorm_0"]["mean"],
+                               st["BatchNorm_0"]["var"])
+            wt, bt = fold_bn(sd[conv + "weight"], sd[bn + "weight"],
+                             sd[bn + "bias"], sd[bn + "running_mean"],
+                             sd[bn + "running_var"])
+            assert wt.dtype == bt.dtype == torch.float32
+            wt = wt.permute(2, 3, 4, 1, 0).numpy()  # back to DHWIO
+            ulp = np.spacing(np.abs(np.asarray(wj, np.float32)))
+            assert (np.abs(wt - np.asarray(wj)) <= ulp).all()
+            ulp = np.spacing(np.abs(np.asarray(bj, np.float32)))
+            assert (np.abs(bt.numpy() - np.asarray(bj)) <= ulp).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bn_seed", [None, 2])
+def test_fused_infer_apply_matches_reference(tiny_variables, dtype, bn_seed):
+    jcfg = dataclasses.replace(JModel.tiny(), dtype=dtype)
+    tcfg = dataclasses.replace(TModel.tiny(), dtype=dtype,
+                               fused_inference=True)
+    v = _with_bn_stats(tiny_variables, bn_seed)
+    x = np.random.default_rng(1).standard_normal((2, D, D, D, 6)).astype(
+        np.float32)
+    ref = np.asarray(j_fused(jcfg, v, jnp.asarray(x), interpret=True))
+    net = SurfaceNet(tcfg)
+    net.load_state_dict(params_from_jax(v))
+    pred = make_predictor(net, tcfg, "cpu")
+    assert pred.in_dtype == dtype
+    got = pred(torch.tensor(x).to(getattr(torch, dtype)), None)
+    assert got.dtype == torch.float32 and got.shape == (2, D, D, D)
+    # bf16 rounding of conv outputs whose float32 sums differ in order
+    assert np.abs(got.numpy() - ref).max() <= 1e-2
+
+
+def test_fused_route_only_for_resize_side_layers():
+    tcfg = dataclasses.replace(TModel.tiny(), fused_inference=True,
+                               upsample_mode="deconv")
+    net = SurfaceNet(tcfg).eval()
+    x = torch.randn((1, D, D, D, 6), generator=torch.Generator().manual_seed(0))
+    # make_predictor falls to SurfaceNet.forward for deconv, as the
+    # reference's does; fused_infer_apply itself refuses deconv
+    with torch.no_grad():
+        np.testing.assert_array_equal(make_predictor(net, tcfg, "cpu")(x)
+                                      .numpy(), net(x).numpy())
+    with pytest.raises(NotImplementedError):
+        fused_infer_apply(tcfg, fused_params(net.state_dict(), tcfg, "cpu"),
+                          x)

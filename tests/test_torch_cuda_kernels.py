@@ -12,11 +12,16 @@ import pytest
 import torch
 
 from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
+from surfacenet_tpu_torch.ops.conv3d import conv3d_plain
+from surfacenet_tpu_torch.ops.cuda.affine_pool import (
+    affine_pool, ray_max_mask_affine_cuda,
+)
 from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_vote
+from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
 from surfacenet_tpu_torch.ops.cvc import build_cvc_views
 from surfacenet_tpu_torch.ops.ray_pooling import (
-    ray_vote_affine_plain, vote_params,
+    ray_max_mask_affine_batch, ray_vote_affine_plain, vote_params,
 )
 
 torch.set_num_threads(2)
@@ -88,3 +93,99 @@ def test_kernels_reject_bad_inputs(cuda):
         affine_vote(fused, torch.zeros((1, 2), dtype=torch.int64,
                                        device=cuda),
                     torch.zeros((1, 2, 2), device=cuda))
+
+
+def within_one_bf16_ulp(got, ref):
+    """|kernel - plain| <= 2^-7 |plain| + 1e-3 rms(plain), elementwise."""
+    got, ref = got.float(), ref.float()
+    rms = ref.pow(2).mean().sqrt()
+    return (got - ref).abs() <= 2.0**-7 * ref.abs() + 1e-3 * rms
+
+
+@pytest.mark.parametrize("cin,cout,dil,R", [
+    (6, 32, 1, 16), (32, 128, 1, 8), (128, 128, 2, 8), (128, 256, 2, 8),
+    (32, 8, 1, 8), (128, 72, 1, 8),  # narrow and ragged N tiles
+])
+def test_conv3d_kernel_matches_plain(cuda, cin, cout, dil, R):
+    g = torch.Generator(cuda).manual_seed(cin + cout + dil)
+    B = 3
+    x = torch.randn((B, R, R, R, cin), generator=g, device=cuda).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * cin, cout), generator=g, device=cuda)
+         / (27 * cin) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((cout,), generator=g, device=cuda) * 0.1
+    before = conv3d.launches
+    got = conv3d(x, w, b, dil=dil, relu=True)
+    ref = conv3d_plain(x, w, b, dil, True)
+    torch.cuda.synchronize()
+    assert conv3d.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert within_one_bf16_ulp(got, ref).float().mean().item() >= 0.9999
+    assert (ref > 0).any() and (ref == 0).any()
+
+
+def test_conv3d_kernel_ragged_m_and_no_relu(cuda):
+    """M = 2 * 5^3 = 250 voxels: the second M tile runs past the end."""
+    g = torch.Generator(cuda).manual_seed(9)
+    x = torch.randn((2, 5, 5, 5, 16), generator=g, device=cuda).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * 16, 16), generator=g, device=cuda) * 0.05).to(
+        torch.bfloat16)
+    b = torch.randn((16,), generator=g, device=cuda)
+    got = conv3d(x, w, b, dil=1, relu=False)
+    ref = conv3d_plain(x, w, b, 1, False)
+    torch.cuda.synchronize()
+    assert (ref < 0).any()
+    assert within_one_bf16_ulp(got, ref).all()
+
+
+@pytest.mark.parametrize("window", [0, 2])
+def test_affine_pool_kernel_matches_plain_and_sums_to_votes(cuda, scene,
+                                                            window):
+    rng = np.random.default_rng(3)
+    D, s, N, K = 32, 1.5, 5, 4
+    probs = torch.as_tensor(rng.uniform(size=(N, D, D, D)),
+                            dtype=torch.float32, device=cuda)
+    origins = torch.as_tensor(rng.uniform(-40, 0, (N, 3)),
+                              dtype=torch.float32, device=cuda)
+    Ps_pool = torch.as_tensor(scene.Ps[rng.integers(0, 4, (N, K))],
+                              dtype=torch.float32, device=cuda)
+    before = affine_pool.launches
+    items = probs.repeat_interleave(K, dim=0)
+    item_orig = origins.repeat_interleave(K, dim=0)
+    mk = ray_max_mask_affine_cuda(items, item_orig, s,
+                                  Ps_pool.reshape(-1, 3, 4), window)
+    mp = ray_max_mask_affine_batch(items, item_orig, s,
+                                   Ps_pool.reshape(-1, 3, 4), window)
+    torch.cuda.synchronize()
+    assert affine_pool.launches == before + 1
+    assert mk.dtype == torch.bool
+    assert (mk == mp).float().mean().item() >= 0.9999
+    # summed over the views of each cube, the masks are the votes
+    active = torch.ones((N, K), dtype=torch.bool, device=cuda)
+    axis, slopes = vote_params(origins, s, Ps_pool, active, D)
+    votes = affine_vote(probs, axis, slopes, window)
+    sums = mk.reshape(N, K, D, D, D).sum(dim=1, dtype=torch.int32)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, votes)
+
+
+def test_new_kernels_reject_bad_inputs(cuda):
+    x = torch.zeros((1, 4, 4, 4, 8), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((27 * 8, 16), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros(16, device=cuda)
+    misaligned = torch.zeros(x.numel() + 1, dtype=torch.bfloat16,
+                             device=cuda)[1:].view(x.shape)
+    for bad in (dict(x=x.float()), dict(w=w[:, :12].contiguous()),
+                dict(b=b.cpu()), dict(x=x.cpu()), dict(x=x.transpose(1, 3)),
+                dict(x=misaligned)):
+        with pytest.raises(ValueError):
+            conv3d(**(dict(x=x, w=w, b=b) | bad))
+    probs = torch.zeros((2, 4, 4, 4), device=cuda)
+    axis = torch.zeros(2, dtype=torch.int32, device=cuda)
+    slopes = torch.zeros((2, 2), device=cuda)
+    for bad in (dict(probs=probs.half()), dict(axis=axis.cpu()),
+                dict(slopes=slopes[:1])):
+        with pytest.raises(ValueError):
+            affine_pool(**(dict(probs=probs, axis=axis, slopes=slopes)
+                           | bad))

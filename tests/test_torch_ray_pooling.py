@@ -3,6 +3,10 @@
 Against the Pallas vote kernel in interpret mode: agreement >= 0.995 (the
 bar of tests/test_pallas.py).  Against the sum of the reference's XLA
 ``ray_max_mask_affine`` over the active views: exactly equal.
+
+The affine-pool mask (plain version of the mask kernel) against the
+reference's ``ray_max_mask_affine_pallas`` in interpret mode: agreement
+>= 0.999 per item (the bar tests/test_pallas.py holds the reference to).
 """
 
 import jax.numpy as jnp
@@ -10,13 +14,19 @@ import numpy as np
 import pytest
 import torch
 
-from surfacenet_tpu.ops.pallas.affine_pool import ray_vote_affine_pallas
+from surfacenet_tpu.ops.pallas.affine_pool import (
+    ray_max_mask_affine_pallas, ray_vote_affine_pallas,
+)
 from surfacenet_tpu.ops.ray_pooling import ray_max_mask_affine as j_mask
+from surfacenet_tpu_torch.ops.cuda.affine_pool import (
+    affine_pool, ray_max_mask_affine_cuda,
+)
 from surfacenet_tpu_torch.ops.cuda.affine_vote import (
     affine_vote, ray_vote_affine,
 )
 from surfacenet_tpu_torch.ops.ray_pooling import (
-    _projection_jacobian, ray_max_mask_affine, vote_params,
+    _projection_jacobian, item_params, ray_max_mask_affine,
+    ray_max_mask_affine_batch, ray_vote_affine_plain, vote_params,
 )
 
 torch.set_num_threads(2)
@@ -117,3 +127,67 @@ def test_boundary_voxels_with_rays_leaving_the_cube_vote():
     inactive = affine_vote(fused, torch.tensor([[-1]], dtype=torch.int32),
                            slopes, window=0)
     assert (inactive == 0).all()
+
+
+@pytest.fixture(scope="module")
+def mask_case():
+    """N = 6 items of D = 16, one pooling view each, all three ray axes."""
+    from surfacenet_tpu.data.synthetic import make_sphere_scene
+
+    scene = make_sphere_scene(n_views=6, hw=(96, 128))
+    rng = np.random.default_rng(7)
+    probs = rng.uniform(size=(6, 16, 16, 16)).astype(np.float32)
+    origins = rng.uniform(-40, 10, (6, 3)).astype(np.float32)
+    Ps = scene.Ps.astype(np.float32)
+    return probs, origins, Ps
+
+
+@pytest.mark.parametrize("window", [0, 2, 4])
+def test_mask_batch_matches_pallas_interpret(mask_case, window):
+    probs, origins, Ps = mask_case
+    ref = np.asarray(ray_max_mask_affine_pallas(
+        jnp.asarray(probs), jnp.asarray(origins), S, jnp.asarray(Ps),
+        window=window, interpret=True,
+    ))
+    got = ray_max_mask_affine_batch(torch.tensor(probs),
+                                    torch.tensor(origins), S,
+                                    torch.tensor(Ps), window=window).numpy()
+    assert got.dtype == bool and got.shape == probs.shape
+    agree = (got == ref).reshape(len(probs), -1).mean(axis=1)
+    assert (agree >= 0.999).all(), agree
+    axis, _ = item_params(torch.tensor(origins), S, torch.tensor(Ps), 16)
+    assert len(set(axis.tolist())) > 1  # more than one ray axis exercised
+    # the kernel's wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        ray_max_mask_affine_cuda(torch.tensor(probs), torch.tensor(origins),
+                                 S, torch.tensor(Ps), window=window).numpy(),
+        got)
+
+
+@pytest.mark.parametrize("window", [0, 2])
+def test_masks_summed_over_views_are_the_votes(case, window):
+    probs, origins, Ps_pool, mask = case
+    axis, slopes = vote_params(torch.tensor(origins), S,
+                               torch.tensor(Ps_pool), torch.tensor(mask), D)
+    votes = ray_vote_affine_plain(torch.tensor(probs), axis, slopes, window)
+    masks = affine_pool(
+        torch.tensor(probs).repeat_interleave(K, dim=0),
+        axis.reshape(-1).contiguous(), slopes.reshape(-1, 2).contiguous(),
+        window,
+    ).reshape(N, K, D, D, D)
+    # inactive slots (axis -1) give all-False masks
+    assert not masks[torch.tensor(~mask)].any()
+    np.testing.assert_array_equal(masks.sum(dim=1).numpy(), votes.numpy())
+
+
+def test_affine_pool_rejects_bad_inputs():
+    probs = torch.zeros((2, 4, 4, 4))
+    axis = torch.zeros(2, dtype=torch.int32)
+    slopes = torch.zeros((2, 2))
+    for bad in (dict(probs=probs.double()), dict(probs=probs[:, :3]),
+                dict(axis=axis.long()), dict(axis=axis[:1]),
+                dict(slopes=slopes[:, :1]),
+                dict(slopes=slopes.t().contiguous().t())):
+        args = dict(probs=probs, axis=axis, slopes=slopes) | bad
+        with pytest.raises(ValueError):
+            affine_pool(**args)

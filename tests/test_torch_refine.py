@@ -43,8 +43,8 @@ def test_refine_calibration_auto_matches_reference(degraded):
     assert i_t["passes"] == i_j["passes"] == 1
     assert np.abs(i_j["duv_px"]).max() > 0.1  # it did move the views
     assert np.abs(i_t["duv_px"] - i_j["duv_px"]).max() <= 0.05
-    # the port keeps the caller's dtype (the reference returns float32)
-    assert P_t.dtype == np.float64 and P_j.dtype == np.float32
+    # both return float32 for float64 input, shifted in float32
+    assert P_t.dtype == P_j.dtype == np.float32
     np.testing.assert_allclose(P_t, P_j, rtol=1e-4, atol=1e-2)
 
 
@@ -84,18 +84,30 @@ def test_refine_calibration_auto_full_schedule_matches_reference(degraded):
 
 def test_second_pass_composes_with_the_first(degraded):
     """A polish pass (forced by a low threshold) starts from the first
-    pass's matrices; the total shift reproduces the final matrices.  (Its
-    duv is not compared with the reference: it starts at the optimum,
-    where Adam's steps follow the sign of near-zero gradients.)"""
+    pass's matrices; the two passes' shifts, applied in turn to the input
+    matrices, reproduce the final matrices, and the reported total is
+    their sum.  (Its duv is not compared with the reference: it starts at
+    the optimum, where Adam's steps follow the sign of near-zero
+    gradients.)"""
     Ps64 = np.asarray(degraded.Ps, np.float64)
+    args = (degraded.images, Ps64, degraded.bbox_min, degraded.bbox_max)
     P_t, info = T.refine_calibration_auto(
-        degraded.images, Ps64, degraded.bbox_min, degraded.bbox_max,
-        device="cpu", second_pass_threshold_px=0.1, **KW)
+        *args, device="cpu", second_pass_threshold_px=0.1, **KW)
     assert info["passes"] == 2 and info["pass_kinds"] == ["default",
                                                           "polish"]
     assert len(info["level_losses"]) == 4
-    again = T.apply_uv_shift(torch.tensor(Ps64),
-                             torch.tensor(info["duv_px"], dtype=torch.float64))
+    # the same two passes run by hand (deterministic on the CPU)
+    P1, i1 = T.refine_calibration(*args, device="cpu", **KW)
+    _, i2 = T.refine_calibration(degraded.images, P1, *args[2:],
+                                 device="cpu", **KW)
+    np.testing.assert_array_equal(info["duv_px"],
+                                  i1["duv_px"] + i2["duv_px"])
+    # each pass shifts float32 matrices, as the reference's passes do
+    assert P_t.dtype == np.float32
+    again = T.apply_uv_shift(
+        T.apply_uv_shift(torch.tensor(Ps64, dtype=torch.float32),
+                         torch.tensor(i1["duv_px"])),
+        torch.tensor(i2["duv_px"]))
     np.testing.assert_allclose(P_t, again.numpy(), rtol=1e-9, atol=1e-6)
 
 

@@ -116,6 +116,62 @@ def test_cube_batch_step_matches_pallas_path(scene, batch, predictor,
     assert np.abs(color_t - color_j).max() <= 1e-4
 
 
+def test_cube_batch_step_fused_inference_matches_reference(scene, batch):
+    """The fused-inference SurfaceNet in the batch step: the reference's
+    ``fused_infer_apply`` (Pallas conv in interpret mode) against the
+    port's fused predictor on the CPU (the conv kernel's plain version),
+    the same tiny weights with non-identity BatchNorm statistics."""
+    from surfacenet_tpu.models.surfacenet import SurfaceNet as JNet
+    from surfacenet_tpu.models.surfacenet import fused_infer_apply
+    from surfacenet_tpu_torch.models.convert import params_from_jax
+    from surfacenet_tpu_torch.models.surfacenet import (
+        SurfaceNet, make_predictor,
+    )
+
+    jcfg = dataclasses.replace(ModelConfig.tiny(), fused_inference=True)
+    jnet = JNet(jcfg)
+    variables = jax.jit(lambda k, x: jnet.init(k, x, train=False))(
+        jax.random.PRNGKey(3), jnp.zeros((1, 8, 8, 8, 6)))
+    rng = np.random.default_rng(4)
+    variables = {
+        "params": jax.tree_util.tree_map(np.asarray, variables["params"]),
+        "batch_stats": jax.tree_util.tree_map(
+            lambda v: rng.uniform(0.5, 1.5, v.shape).astype(np.float32),
+            variables["batch_stats"]),
+    }
+
+    def j_pred(x, origins):
+        return fused_infer_apply(jcfg, variables, x, interpret=True)
+
+    tcfg = TConfig.from_json(Config(model=jcfg).to_json()).model
+    assert tcfg.fused_inference
+    net = SurfaceNet(tcfg)
+    net.load_state_dict(params_from_jax(variables))
+    t_pred = make_predictor(net, tcfg, "cpu")
+    H, W = scene.images.shape[1:3]
+    kw = dict(D=D, s=S, n_pairs=2, tau=0.3, gamma=0.6, adaptive=False,
+              center_colors=True, n_pool_views=3, pool_window=2)
+    ref = J.cube_batch_step(
+        jnp.asarray(scene.images), jnp.asarray(scene.Ps, jnp.float32),
+        **{k: jnp.asarray(v) for k, v in batch.items()}, predict=j_pred,
+        use_pallas=True, ray_pool_mode="affine_pallas",
+        pallas_interpret=True, crop_hw=(H, W), gather_dtype="float32", **kw,
+    )
+    got = T.cube_batch_step(
+        torch.tensor(scene.images), torch.tensor(scene.Ps,
+                                                 dtype=torch.float32),
+        **_port_args(batch), predict=t_pred, **kw,
+    )
+    occ_j, fused_j, color_j = (np.asarray(a) for a in ref)
+    occ_t, fused_t, color_t = (a.numpy() for a in got)
+    # the unfused case's tolerances hold: the bf16 conv needs no widening
+    # here (the plain conv rounds to the Pallas conv's bf16 values)
+    assert np.abs(fused_t - fused_j).max() <= 1e-4
+    assert (occ_t == occ_j).mean() >= 0.995
+    assert occ_t.any()
+    assert np.abs(color_t - color_j).max() <= 1e-4
+
+
 def test_compact_records_round_trip_like_reference(scene, batch):
     kw = dict(D=D, s=S, n_pairs=2, tau=0.3, gamma=0.6, adaptive=False,
               center_colors=True, n_pool_views=3, pool_window=2,
@@ -188,7 +244,7 @@ def test_run_sweep_with_refinement_and_kernel_path_config(scene):
                                scene.bbox_max, tcfg,
                                T.photoconsistency_predictor, device="cpu")
     assert stats.refine_info["passes"] >= 1
-    assert stats.Ps.dtype == np.asarray(scene.Ps).dtype
+    assert stats.Ps.dtype == np.float32  # refined, as the reference's
     pts, probs, colors = store.merge()
     assert len(pts) > 200 and np.isfinite(pts).all()
     assert ((0 <= colors) & (colors <= 1)).all()
