@@ -15,7 +15,9 @@ the run with a non-zero exit code and no result line):
   5. the same sweep with the photoconsistency predictor: points must come
      out, and their distance to the analytic sphere is reported;
   6. the gather and the vote against their plain PyTorch versions at the
-     first batch's own inputs, with CUDA-event times, the card's bound and,
+     first batch's own inputs, with CUDA-event times, the card's bound (a
+     gather's bytes: its outputs plus the distinct pixels its valid
+     voxels' taps read) and,
      for the gather, ``F.grid_sample``'s time on the same projected points;
      then the device time of one warm batch step split into model, kernels
      and the rest;
@@ -36,11 +38,31 @@ the run with a non-zero exit code and no result line):
      6 pooling views, windows 0 and 2, against its plain version; the masks
      summed over each cube's active views must equal the vote kernel's
      votes;
-  10. the result line.
+  10. main path, int8 gather, from a scan on disk through the CLI: the
+      sphere written as PNGs by the port's ``write_scan`` and read back by
+      ``load_scan`` (bitwise the uint8 images), the seeded fast64 weights
+      saved with ``save_npz``, then ``cli.main(["reconstruct", "--scan",
+      ..., "--preset", "dtu9_full", "--checkpoint", ..., "--set",
+      'sweep.gather_dtype="int8"', "--set", "fusion.tau=0.5"])`` (a random
+      net's probabilities stay below the preset's tau 0.7); fails unless
+      the gather's int8 entry ran at least once a batch, its bf16 entry
+      never, and the vote ran, and unless points were written;
+  11. the int8 entry against its plain version at the phase-6 items
+      (bitwise), its time beside the bf16 entry's on the same items and its
+      bound, and the int8 colours' distance from the float32 entry's
+      (the reference's class: <= 1.5e-2);
+  12. ``cli.main(["eval", ...])`` of phase 10's ``.ply`` against samples of
+      the analytic sphere: finite accuracy and completeness (seeded random
+      weights give no quality);
+  13. ``cli selftest`` on the sphere (exact pooling, float32 gather entry)
+      and the tori (affine vote), on the card and with ``--device cpu``:
+      the merged voxel sets agree on >= 0.99 of their union, accuracy and
+      completeness within 2%;
+  14. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  Writes only to a temporary directory and to the
-package's git-ignored build directory.
+package's git-ignored build directory.  Needs no PIL.
 """
 
 import dataclasses
@@ -54,11 +76,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from surfacenet_tpu_torch import cli
 from surfacenet_tpu_torch.cli import reconstruct_scan
 from surfacenet_tpu_torch.config import baseline_config
-from surfacenet_tpu_torch.data.dtu import Scan
+from surfacenet_tpu_torch.data.dtu import Scan, load_scan, write_scan
 from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
 from surfacenet_tpu_torch.geometry.camera import project_rows
+from surfacenet_tpu_torch.models.convert import save_npz
 from surfacenet_tpu_torch.models.surfacenet import (
     forward_flops, fused_infer_apply, fused_params, init_surfacenet,
     make_predictor,
@@ -71,7 +95,7 @@ from surfacenet_tpu_torch.ops.cuda.affine_pool import (
 from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_vote
 from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
-from surfacenet_tpu_torch.ops.cvc import build_cvc_views
+from surfacenet_tpu_torch.ops.cvc import build_cvc_views, quantize_int8
 from surfacenet_tpu_torch.ops.ray_pooling import (
     item_params, ray_max_mask_affine_batch, ray_max_mask_affine_plain,
     ray_vote_affine_plain, vote_params,
@@ -80,7 +104,8 @@ from surfacenet_tpu_torch.pipeline.sweep import (
     cube_batch_step, photoconsistency_predictor, plan_sweep, pool_views_for,
     resolve_pool_window,
 )
-from surfacenet_tpu_torch.utils.ply import read_ply
+from surfacenet_tpu_torch.utils.metrics import voxel_set_agreement
+from surfacenet_tpu_torch.utils.ply import read_ply, write_ply
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32
 # operations/s outside the tensor cores, bf16 tensor-core FLOP/s
@@ -91,6 +116,10 @@ PEAK_BF16_S = 989e12  # dense tensor-core bf16
 # eps 1, divisions 2 (all voxels); floor/fractions/weights 10 and three
 # 4-tap channel sums 21 (valid voxels only)
 GATHER_OPS_ALL, GATHER_OPS_VALID = 30, 31
+# the int8 entry per valid voxel: floor/fractions 4, 1 - dv, 1 - du 2, two
+# weight products and roundings 4; per channel 4 integer products, 2 adds,
+# 2 conversions, 2 scalings, 2 weight products and 1 sum
+GATHER_INT8_OPS_VALID = 10 + 3 * 13
 
 
 def log(msg):
@@ -122,9 +151,30 @@ def bound(n_bytes, n_ops, peak_ops=PEAK_F32_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def footprint_pixels(nu, nv, den, views, H, W):
+    """Distinct image pixels that the bilinear taps of the valid voxels
+    read: a gather's input bytes, each read once, are these pixels' bytes.
+    nu, nv, den: (B, D, D, D) projection rows; views: (B,) view of each
+    item."""
+    d = den + 1e-8
+    u, v = nu / d, nv / d
+    ok = (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1) & (den > 0)
+    u0 = torch.floor(u[ok]).long()
+    v0 = torch.floor(v[ok]).long()
+    base = (views.long()[:, None, None, None] * (H * W)).expand_as(ok)[ok]
+    touched = torch.zeros(int(views.max()) * H * W + H * W, dtype=torch.bool,
+                          device=nu.device)
+    for dv in (0, 1):
+        for du in (0, 1):
+            touched[base + (v0 + dv).clamp(max=H - 1) * W
+                    + (u0 + du).clamp(max=W - 1)] = True
+    return int(touched.sum().item())
+
+
 def reset_counts():
     for kernel in (warp_gather, affine_vote, conv3d, affine_pool):
         kernel.launches = 0
+    warp_gather.entry_launches = dict.fromkeys(warp_gather.entry_launches, 0)
 
 
 def within_one_bf16_ulp(got, ref):
@@ -286,6 +336,7 @@ def main() -> int:
         vorig[:, 1, None, None, None] + r[None, None, :, None],
         vorig[:, 2, None, None, None] + r[None, None, None, :],
     )
+    n_pixels = footprint_pixels(nu, nv, den, views, H, W)
     den = den + 1e-8
     grid = torch.stack([nu / den / (W - 1) * 2 - 1,
                         nv / den / (H - 1) * 2 - 1], dim=-1)
@@ -296,7 +347,7 @@ def main() -> int:
         imgs_items, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), iters=5, warmup=1)
     del imgs_items, grid
-    g_bytes = (images_g.numel() * images_g.element_size() + Ps_d.numel() * 4
+    g_bytes = (n_pixels * 3 * images_g.element_size() + Ps_d.numel() * 4
                + views.numel() * 4 + vorig.numel() * 4
                + colors_k.numel() * 4 + valid_k.numel())
     g_ops = n_items * D**3 * GATHER_OPS_ALL + n_valid * GATHER_OPS_VALID
@@ -546,6 +597,142 @@ def main() -> int:
         raise RuntimeError(f"ray_max_mask_affine_cuda launched the kernel "
                            f"{pool_launches} times for {len(windows)} calls")
     pool_main = pool_runs[-1]  # the sweep's own window
+    del probs_i, masks, fused_f
+    torch.cuda.empty_cache()
+
+    phase(10, "main path, int8 gather: a scan on disk through cli "
+          "reconstruct, dtu9_full, seeded fast64 net")
+    scan_dir = f"{tmp.name}/scan"
+    t0 = time.perf_counter()
+    write_scan(scan_dir, scene.images, scene.Ps, scene.bbox_min,
+               scene.bbox_max)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_disk = load_scan(scan_dir)
+    t_read = time.perf_counter() - t0
+    u8 = np.clip(scene.images * 255.0, 0, 255).astype(np.uint8)
+    if not np.array_equal(on_disk.images, u8.astype(np.float32) / 255.0):
+        raise RuntimeError("load_scan did not return the written images")
+    log(f"scan of {len(on_disk.images)} PNGs of {u8.shape[1]}x{u8.shape[2]} "
+        f"written in {t_write:.2f} s, read back bitwise in {t_read:.2f} s")
+    del on_disk, u8
+    npz = f"{tmp.name}/fast64.npz"
+    save_npz(init_surfacenet(cfg.model, torch.Generator().manual_seed(0))
+             .state_dict(), npz)
+    int8_ply = f"{tmp.name}/int8.ply"
+    reset_counts()
+    t0 = time.perf_counter()
+    # tau 0.5: a seeded random net's fused probabilities lie near 0.5
+    # (0.46-0.52), below the preset's 0.7, which phases 4 and 7 keep and
+    # where no voxel survives; phase 12 needs points to score
+    n_int8, stats_8, timings_8 = cli.main([
+        "reconstruct", "--scan", scan_dir, "--out", int8_ply,
+        "--preset", "dtu9_full", "--checkpoint", npz,
+        "--set", 'sweep.gather_dtype="int8"', "--set", "fusion.tau=0.5",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_8 = dict(warp_gather.entry_launches,
+                      affine_vote=affine_vote.launches)
+    log(f"stages {json.dumps(timings_8)} total {wall:.3f} s")
+    log(f"cubes {stats_8.n_cubes_after_prefilter}/{stats_8.n_cubes_total} "
+        f"in {stats_8.n_batches} batches, "
+        f"{stats_8.n_cubes_after_prefilter / stats_8.sweep_s:.2f} cubes/s "
+        f"(sweep stage), non-empty {stats_8.n_cubes_nonempty}, points "
+        f"{n_int8}")
+    log(f"kernel launches in the int8 main path: {json.dumps(launches_8)}")
+    if (launches_8["warp_gather_int8"] < stats_8.n_batches
+            or launches_8["warp_gather_bf16"] or launches_8["affine_vote"] <= 0):
+        raise RuntimeError("the int8 main path did not run the int8 gather "
+                           "once a batch and the vote")
+    if n_int8 <= 0:
+        raise RuntimeError("the int8 main path wrote no points")
+
+    phase(11, "int8 gather entry against its plain version, phase-6 items")
+    images_q = quantize_int8(torch.as_tensor(scene.images, device=dev))
+    colors_q, valid_q = warp_gather(images_q, Ps_d, views, vorig, D=D, s=s)
+    colors_p, valid_p = build_cvc_views(images_q, Ps_d, views, vorig, D, s)
+    torch.cuda.synchronize()
+    q_equal = torch.equal(colors_q, colors_p) and torch.equal(valid_q,
+                                                              valid_p)
+    q_err = (colors_q - colors_p).abs().max().item()
+    del colors_p, valid_p
+    images_f = torch.as_tensor(scene.images, device=dev).contiguous()
+    colors_f, valid_f = warp_gather(images_f, Ps_d, views, vorig, D=D, s=s)
+    f32_diff = (colors_q - colors_f).abs()[valid_q & valid_f].max().item()
+    n_valid_q = int(valid_q.sum().item())
+    q_out_bytes = colors_q.numel() * 4 + valid_q.numel()
+    del colors_f, valid_f, images_f, colors_q, valid_q
+    log(f"warp_gather int8: {n_items} items of {D}^3, bitwise equal to its "
+        f"plain version {q_equal} (max |diff| {q_err:.3e}); max |colour "
+        f"diff| from the float32 entry on valid voxels {f32_diff:.3e}")
+    if not q_equal:
+        raise RuntimeError("the int8 gather differs from its plain version")
+    if f32_diff > 1.5e-2:
+        raise RuntimeError("the int8 gather is outside its error class")
+
+    def gather_q():
+        return warp_gather(images_q, Ps_d, views, vorig, D=D, s=s)
+
+    def gather_b():
+        return warp_gather(images_g, Ps_d, views, vorig, D=D, s=s)
+
+    # in turns on the same items: int8, bf16, bf16, int8
+    turns = [cuda_ms(fn, iters=20) for fn in (gather_q, gather_b, gather_b,
+                                              gather_q)]
+    q_ms, qb_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    q_plain = cuda_ms(lambda: build_cvc_views(images_q, Ps_d, views, vorig,
+                                              D, s), iters=3, warmup=1)
+    q_bytes = (n_pixels * 3 + Ps_d.numel() * 4 + views.numel() * 4
+               + vorig.numel() * 4 + q_out_bytes)
+    q_ops = n_items * D**3 * GATHER_OPS_ALL + n_valid_q * GATHER_INT8_OPS_VALID
+    q_bound, q_by = bound(q_bytes, q_ops)
+    log(f"warp_gather int8 {q_ms:.4f} ms (turns {turns[0]:.4f} / "
+        f"{turns[3]:.4f}), bf16 {qb_ms:.4f} ms (turns {turns[1]:.4f} / "
+        f"{turns[2]:.4f}), bound {q_bound:.4f} ms by {q_by}, plain "
+        f"{q_plain:.2f} ms; int8 images {images_q.numel() / 1e6:.1f} MB")
+    del images_q
+    torch.cuda.empty_cache()
+
+    phase(12, "cli eval of the int8 path's .ply against the analytic sphere")
+    gt_ply = f"{tmp.name}/gt.ply"
+    write_ply(gt_ply, scene.surface_points(20000))
+    ev = cli.main(["eval", "--pred", int8_ply, "--gt", gt_ply])
+    if ev["n_pred_total"] <= 0 or not np.isfinite(
+            [ev["acc_mean_mm"], ev["comp_mean_mm"]]).all():
+        raise RuntimeError(f"eval of the int8 path's .ply gave {ev}")
+
+    phase(13, "cli selftest, sphere and tori, on the card and on the CPU")
+    selftests = []
+    for name in ("sphere", "tori"):
+        reset_counts()
+        t0 = time.perf_counter()
+        pts_c, acc_c, comp_c, _ = cli.main(["selftest", "--scene", name])
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        counts = dict(warp_gather.entry_launches,
+                      affine_vote=affine_vote.launches)
+        t0 = time.perf_counter()
+        pts_h, acc_h, comp_h, _ = cli.main(["selftest", "--scene", name,
+                                            "--device", "cpu"])
+        t_cpu = time.perf_counter() - t0
+        run = {"scene": name, "points_card": len(pts_c),
+               "points_cpu": len(pts_h),
+               "voxel_agreement": voxel_set_agreement(pts_c, pts_h),
+               "acc_card_mm": acc_c, "acc_cpu_mm": acc_h,
+               "comp_card_mm": comp_c, "comp_cpu_mm": comp_h,
+               "card_s": t_card, "cpu_s": t_cpu, "launches": counts}
+        selftests.append(run)
+        log(f"selftest {json.dumps(run)}")
+        if (run["voxel_agreement"] < 0.99
+                or abs(acc_c - acc_h) > 0.02 * acc_h
+                or abs(comp_c - comp_h) > 0.02 * comp_h):
+            raise RuntimeError(f"selftest {name}: card and CPU disagree")
+        # the sphere pools exact (no vote kernel), the tori affine
+        if counts["warp_gather_f32"] <= 0 or (
+                (counts["affine_vote"] > 0) != (name == "tori")):
+            raise RuntimeError(f"selftest {name} ran other kernels than "
+                               f"its path: {counts}")
 
     kernels = [
         {
@@ -592,6 +779,17 @@ def main() -> int:
             "bound_by": pool_main["bound_by"], "library_ms": None,
             "window": pool_main["window"], "windows": pool_runs,
         },
+        {
+            "name": "warp_gather_int8", "route": "cuda",
+            "source": "surfacenet_tpu_torch/csrc/warp_gather.cu",
+            "replaces": "surfacenet_tpu/ops/pallas/warp_gather.py:148",
+            "path": "reconstruct --set sweep.gather_dtype=\"int8\"",
+            "launches": launches_8["warp_gather_int8"],
+            "max_abs_err": q_err,
+            "ms": q_ms, "plain_ms": q_plain, "bound_ms": q_bound,
+            "bound_by": q_by, "library_ms": None, "bf16_ms": qb_ms,
+            "f32_max_abs_diff": f32_diff, "items": n_items,
+        },
     ]
     for k in kernels:
         log(f"{k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f} ms by "
@@ -600,7 +798,7 @@ def main() -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(10, "result")
+    phase(14, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,18 @@
     python -m surfacenet_tpu_torch.cli reconstruct --scan DIR --out out.ply \
         [--preset dtu9_full | --config cfg.json] [--set voxel.cube_size=64] \
         [--checkpoint weights.npz] [--bbox x0,y0,z0,x1,y1,z1] [--device cuda]
+    python -m surfacenet_tpu_torch.cli selftest [--scene sphere|tori]
+    python -m surfacenet_tpu_torch.cli eval --pred out.ply --gt gt.ply \
+        [--max-dist 20] [--protocol clamp|dtu] [--obs-mask m.npz] \
+        [--plane a,b,c,d]
 
 ``--checkpoint`` takes the ``.npz`` written by ``models/convert.py``;
-without it the photoconsistency predictor runs.  ``--device`` defaults to
-``cuda`` and fails when no card is present; ``--device cpu`` runs the
-plain PyTorch versions of the kernels on the CPU.
+without it the photoconsistency predictor runs.  ``selftest`` sweeps a
+synthetic golden scene with the photoconsistency predictor and scores it
+against the analytic surface; ``eval`` scores a predicted ``.ply`` against
+a ground-truth ``.ply``.  ``--device`` defaults to ``cuda`` and fails when
+no card is present; ``--device cpu`` runs the plain PyTorch versions of
+the kernels on the CPU.  ``main`` returns what the command computed.
 """
 
 from __future__ import annotations
@@ -72,6 +79,106 @@ def _load_predictor(checkpoint, cfg, device):
                           device)
 
 
+def selftest_setup(scene: str = "sphere"):
+    """(Config, scene) of the golden selftest, as the reference's
+    ``cli selftest`` builds them: 16^3 cubes of 2 mm, 3 pairs; the sphere
+    pools "exact" (the default), the tori "affine" with a 1-voxel window
+    (their 10 mm tube is 5 voxels)."""
+    from surfacenet_tpu_torch.config import (
+        Config, FusionConfig, SweepConfig, VoxelConfig,
+    )
+    from surfacenet_tpu_torch.data.synthetic import (
+        make_sphere_scene, make_tori_scene,
+    )
+
+    hard = scene == "tori"
+    cfg = Config(
+        voxel=VoxelConfig(voxel_size_mm=2.0, cube_size=16, overlap=4),
+        fusion=FusionConfig(
+            n_view_pairs=3, tau=0.25, gamma=0.6,
+            **({"pool_window_vox": 1, "ray_pool_mode": "affine"}
+               if hard else {}),
+        ),
+        sweep=SweepConfig(cube_batch=8),
+    )
+    make = make_tori_scene if hard else make_sphere_scene
+    return cfg, make(n_views=8, hw=(120, 160))
+
+
+def selftest(scene: str = "sphere", device="cuda"):
+    """Sweep a golden scene with the photoconsistency predictor and score
+    the merged points against 4000 samples of the analytic surface.
+
+    Returns (points (N, 3), accuracy mm, completeness mm, SweepStats).
+    """
+    from surfacenet_tpu_torch.device import resolve_device
+    from surfacenet_tpu_torch.pipeline.sweep import (
+        photoconsistency_predictor, run_sweep,
+    )
+    from surfacenet_tpu_torch.utils.metrics import accuracy_completeness
+
+    dev = resolve_device(device)
+    cfg, sc = selftest_setup(scene)
+    store, stats = run_sweep(sc.images, sc.Ps, sc.bbox_min, sc.bbox_max,
+                             cfg, photoconsistency_predictor, device=dev)
+    pts, _, _ = store.merge()
+    acc, comp = accuracy_completeness(pts, sc.surface_points(4000),
+                                      device=dev)
+    print(
+        f"selftest: {len(pts)} points, accuracy {acc:.2f}mm, "
+        f"completeness {comp:.2f}mm "
+        f"({stats.n_cubes_nonempty}/{stats.n_cubes_after_prefilter} cubes)"
+    )
+    return pts, acc, comp, stats
+
+
+def cmd_eval(args):
+    """DTU-style evaluation of a predicted .ply against a ground-truth .ply.
+
+    ``--protocol clamp`` (default): clamped means over all points;
+    ``--protocol dtu``: the official semantics (outliers dropped, medians,
+    ``--obs-mask`` / ``--plane`` filtering).  Returns the metrics dict.
+    """
+    from surfacenet_tpu_torch.device import resolve_device
+    from surfacenet_tpu_torch.utils.metrics import (
+        ObsMask, accuracy_completeness, dtu_eval,
+    )
+    from surfacenet_tpu_torch.utils.ply import read_ply
+
+    dev = resolve_device(args.device)
+    pred, _ = read_ply(args.pred)
+    gt, _ = read_ply(args.gt)
+    if args.protocol == "dtu":
+        mask = ObsMask.load(args.obs_mask) if args.obs_mask else None
+        plane = (
+            [float(x) for x in args.plane.split(",")] if args.plane
+            else None
+        )
+        r = dtu_eval(pred, gt, max_dist=args.max_dist, obs_mask=mask,
+                     plane=plane, device=dev)
+        print(
+            f"accuracy {r['acc_mean_mm']:.4f}mm "
+            f"(median {r['acc_median_mm']:.4f})  "
+            f"completeness {r['comp_mean_mm']:.4f}mm "
+            f"(median {r['comp_median_mm']:.4f})  "
+            f"overall {r['overall_mm']:.4f}mm  "
+            f"({r['n_pred_eval']}/{r['n_pred_total']} pred, "
+            f"{r['n_gt_eval']}/{r['n_gt_total']} gt scored; outliers "
+            f"dropped: {r['acc_outlier_frac']:.1%} acc, "
+            f"{r['comp_outlier_frac']:.1%} comp)"
+        )
+        return r
+    acc, comp = accuracy_completeness(pred, gt, max_dist=args.max_dist,
+                                      device=dev)
+    overall = 0.5 * (acc + comp)
+    print(
+        f"accuracy {acc:.4f}mm  completeness {comp:.4f}mm  "
+        f"overall {overall:.4f}mm  ({len(pred)} pred / {len(gt)} gt points)"
+    )
+    return {"acc_mean_mm": acc, "comp_mean_mm": comp, "overall_mm": overall,
+            "n_pred_total": len(pred), "n_gt_total": len(gt)}
+
+
 def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda"):
     """Sweep a loaded scan and write the merged point cloud to ``out``.
 
@@ -126,7 +233,7 @@ def cmd_reconstruct(args):
         scan.bbox_min = np.asarray(vals[:3])
         scan.bbox_max = np.asarray(vals[3:])
     predictor = _load_predictor(args.checkpoint, cfg, dev)
-    reconstruct_scan(scan, cfg, predictor, args.out, dev)
+    return reconstruct_scan(scan, cfg, predictor, args.out, dev)
 
 
 def main(argv=None):
@@ -144,8 +251,32 @@ def main(argv=None):
     pr.add_argument("--set", action="append")
     pr.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     pr.set_defaults(fn=cmd_reconstruct)
+
+    ps = sub.add_parser("selftest", help="synthetic golden-scene run")
+    ps.add_argument("--scene", choices=("sphere", "tori"), default="sphere",
+                    help="golden scene (tori = occlusions/concavities)")
+    ps.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ps.set_defaults(fn=lambda a: selftest(a.scene, a.device))
+
+    pe = sub.add_parser("eval", help="evaluate predicted .ply vs GT .ply")
+    pe.add_argument("--pred", required=True)
+    pe.add_argument("--gt", required=True)
+    pe.add_argument("--max-dist", type=float, default=20.0,
+                    help="distance truncation (DTU protocol), mm")
+    pe.add_argument("--protocol", choices=("clamp", "dtu"), default="clamp",
+                    help="clamp: clamped means over all points; dtu: "
+                         "official semantics (drop outliers, medians, "
+                         "obs-mask/plane filtering)")
+    pe.add_argument("--obs-mask",
+                    help=".npz observability mask (ObsMask.save); dtu "
+                         "protocol only")
+    pe.add_argument("--plane",
+                    help="a,b,c,d: keep GT points with ax+by+cz+d>0 for "
+                         "completeness; dtu protocol only")
+    pe.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    pe.set_defaults(fn=cmd_eval)
     args = ap.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

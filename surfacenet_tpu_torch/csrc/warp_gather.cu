@@ -13,12 +13,19 @@
 //   valid = den > 0 && 0 <= u <= W-1 && 0 <= v <= H-1
 //   colors = valid ? bilinear(images[view], u, v) : 0   (f32 interpolation)
 //
+// int8 entry (the reference kernel's int8 mode, warp_gather.py:148-175):
+// images hold q = round_half_even(x * 127).  The vertical hat weights are
+// rounded to 7 bits, hv0 = rint((1 - dv) * 127), hv1 = rint(dv * 127); per
+// column the int32 sum q[v0] * hv0 + q[v1] * hv1 is exact, is converted to
+// float32 and scaled by (float)(1/127^2); the two columns are combined with
+// the float32 weights 1 - du and du.  Same validity, same output.
+//
 // Bound on an H100: device-memory bytes.  Per voxel it writes 12 B of
 // colour and 1 B of validity and does ~50 float32 operations, far below
 // the card's ~20 operations per byte break-even in float32; the bound is
 // items * D^3 * 13 B of output over 3.35 TB/s.  The images (bf16, one copy
-// per sweep, ~35 MB for 12 views of 600x800) are read through L2 and stay
-// resident there across items.
+// per sweep, ~35 MB for 12 views of 600x800; int8 ~17 MB) are read through
+// L2 and stay resident there across items.
 //
 // Design: one thread per (item, voxel), consecutive threads on consecutive
 // voxels, so the colour and validity stores of a warp are contiguous runs.
@@ -31,6 +38,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -89,16 +98,31 @@ __global__ void warp_gather_kernel(const T* __restrict__ images,
     const T* c01 = img + ((size_t)v0i * W + u1i) * 3;
     const T* c10 = img + ((size_t)v1i * W + u0i) * 3;
     const T* c11 = img + ((size_t)v1i * W + u1i) * 3;
-    const float w00 = (1.f - dv) * (1.f - du);
-    const float w01 = (1.f - dv) * du;
-    const float w10 = dv * (1.f - du);
-    const float w11 = dv * du;
-    r = to_f32(c00[0]) * w00 + to_f32(c01[0]) * w01 + to_f32(c10[0]) * w10 +
-        to_f32(c11[0]) * w11;
-    g = to_f32(c00[1]) * w00 + to_f32(c01[1]) * w01 + to_f32(c10[1]) * w10 +
-        to_f32(c11[1]) * w11;
-    bl = to_f32(c00[2]) * w00 + to_f32(c01[2]) * w01 + to_f32(c10[2]) * w10 +
-         to_f32(c11[2]) * w11;
+    if constexpr (std::is_same<T, int8_t>::value) {
+      const int hv0 = (int)rintf((1.f - dv) * 127.f);
+      const int hv1 = (int)rintf(dv * 127.f);
+      const float deq = (float)(1.0 / (127.0 * 127.0));
+      float out[3];
+      for (int c = 0; c < 3; ++c) {
+        const float left = (float)((int)c00[c] * hv0 + (int)c10[c] * hv1);
+        const float right = (float)((int)c01[c] * hv0 + (int)c11[c] * hv1);
+        out[c] = left * deq * (1.f - du) + right * deq * du;
+      }
+      r = out[0];
+      g = out[1];
+      bl = out[2];
+    } else {
+      const float w00 = (1.f - dv) * (1.f - du);
+      const float w01 = (1.f - dv) * du;
+      const float w10 = dv * (1.f - du);
+      const float w11 = dv * du;
+      r = to_f32(c00[0]) * w00 + to_f32(c01[0]) * w01 + to_f32(c10[0]) * w10 +
+          to_f32(c11[0]) * w11;
+      g = to_f32(c00[1]) * w00 + to_f32(c01[1]) * w01 + to_f32(c10[1]) * w10 +
+          to_f32(c11[1]) * w11;
+      bl = to_f32(c00[2]) * w00 + to_f32(c01[2]) * w01 + to_f32(c10[2]) * w10 +
+           to_f32(c11[2]) * w11;
+    }
   }
   const size_t o = (size_t)b * n_vox + q;
   colors[3 * o + 0] = r;
@@ -135,4 +159,12 @@ extern "C" int warp_gather_f32(const void* images, const void* Ps,
                                int D, float s, void* stream) {
   return launch<float>(images, Ps, view_idx, origins, colors, valid, H, W, B,
                        D, s, stream);
+}
+
+extern "C" int warp_gather_int8(const void* images, const void* Ps,
+                                const void* view_idx, const void* origins,
+                                void* colors, void* valid, int H, int W,
+                                int B, int D, float s, void* stream) {
+  return launch<int8_t>(images, Ps, view_idx, origins, colors, valid, H, W,
+                        B, D, s, stream);
 }

@@ -4,12 +4,14 @@ The reference consumes the DTU "SampleSet" layout: per-scan rectified images
 (``rect_###_<light>_r5000.png``) plus per-view 3x4 projection matrices in
 ``pos_###.txt`` calibration files.  This loader supports that layout and a
 simpler generic one, and includes a writer so synthetic scenes can be
-round-tripped through the on-disk format in tests.  PIL is imported only
-inside the image read and write functions.
+round-tripped through the on-disk format in tests.  PNGs are read and
+written by the port's own decoder (``data/png.py``), so a scan of PNGs
+needs no PIL; another format, or a PNG variant that decoder does not take,
+is read through PIL where PIL is installed and otherwise raises.
 
 Generic scan layout:
     scan_dir/
-      images/  000.png 001.png ...        (any PIL-readable format)
+      images/  000.png 001.png ...        (PNG; other formats through PIL)
       cams/    pos_000.txt pos_001.txt    (3 rows x 4 floats, whitespace)
       bbox.txt                            (2 rows x 3 floats: min, max) [opt]
 """
@@ -22,6 +24,8 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from surfacenet_tpu_torch.data import png
 
 
 @dataclasses.dataclass
@@ -45,10 +49,24 @@ def write_projection_matrix(path: str, P: np.ndarray) -> None:
 
 
 def _load_image(path: str) -> np.ndarray:
-    from PIL import Image
-
-    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
-    return img
+    """(H, W, 3) float32 in [0, 1]; PNG without PIL, anything else with it."""
+    with open(path, "rb") as fh:
+        is_png = fh.read(8) == png.SIGNATURE
+    if is_png:
+        try:
+            return png.read_png(path).astype(np.float32) / 255.0
+        except png.PNGUnsupported as e:
+            reason = str(e)
+    else:
+        reason = f"{path}: not a PNG file"
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(
+            f"{reason}; without PIL only the {png.SUPPORTED} can be read"
+        ) from None
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.float32) / 255.0
 
 
 def load_scan(
@@ -149,15 +167,11 @@ def write_scan(
     bbox_max: Optional[np.ndarray] = None,
 ) -> None:
     """Write a scan in the generic layout (test fixtures / dataset export)."""
-    from PIL import Image
-
     os.makedirs(os.path.join(scan_dir, "images"), exist_ok=True)
     os.makedirs(os.path.join(scan_dir, "cams"), exist_ok=True)
     for i, (img, P) in enumerate(zip(images, Ps)):
         u8 = np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8)
-        Image.fromarray(u8).save(
-            os.path.join(scan_dir, "images", f"{i:03d}.png")
-        )
+        png.write_png(os.path.join(scan_dir, "images", f"{i:03d}.png"), u8)
         write_projection_matrix(
             os.path.join(scan_dir, "cams", f"pos_{i:03d}.txt"), P
         )

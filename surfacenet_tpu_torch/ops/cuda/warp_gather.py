@@ -6,7 +6,9 @@ The source file's header states the kernel's bound and design.
 
 ``warp_gather`` runs the plain version for tensors on the CPU and the
 kernel for tensors on a CUDA device; there is no other route.
-``warp_gather.launches`` counts kernel launches.
+``warp_gather.launches`` counts kernel launches, and
+``warp_gather.entry_launches`` the launches of each entry (bf16, f32,
+int8).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                   ctypes.c_void_p]
 )
-_ENTRY = {torch.bfloat16: "warp_gather_bf16", torch.float32: "warp_gather_f32"}
+_ENTRY = {torch.bfloat16: "warp_gather_bf16", torch.float32: "warp_gather_f32",
+          torch.int8: "warp_gather_int8"}
 
 
 def _kernel_fn(dtype):
@@ -39,7 +42,8 @@ def _check(images, Ps, view_idx, origins):
     if images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(f"images must be (V, H, W, 3), got {tuple(images.shape)}")
     if images.dtype not in _ENTRY:
-        raise TypeError(f"images must be bfloat16 or float32, got {images.dtype}")
+        raise TypeError(
+            f"images must be bfloat16, float32 or int8, got {images.dtype}")
     V = images.shape[0]
     if Ps.shape != (V, 3, 4) or Ps.dtype != torch.float32:
         raise ValueError(f"Ps must be float32 ({V}, 3, 4), got {Ps.dtype} {tuple(Ps.shape)}")
@@ -68,7 +72,9 @@ def warp_gather(
     """Uncentered CVCs for (cube, view) items.
 
     Args:
-      images: (V, H, W, 3) bfloat16 or float32, contiguous.
+      images: (V, H, W, 3) bfloat16 or float32, contiguous; or int8
+        ``round(x * 127)`` (``ops/cvc.py::quantize_int8``), sampled as the
+        reference's int8 kernel mode samples it.
       Ps: (V, 3, 4) float32; view_idx: (B,) int32 in [0, V);
       origins: (B, 3) float32 cube min corners (mm).
 
@@ -99,7 +105,9 @@ def warp_gather(
     if err != 0:
         raise RuntimeError(f"warp_gather kernel launch failed: CUDA error {err}")
     warp_gather.launches += 1
+    warp_gather.entry_launches[_ENTRY[images.dtype]] += 1
     return colors, valid
 
 
 warp_gather.launches = 0
+warp_gather.entry_launches = dict.fromkeys(_ENTRY.values(), 0)

@@ -8,7 +8,9 @@ size s) and a view, every voxel centre is projected through the view's
 kernel (``ops/cuda/warp_gather.py``): it computes the same function with
 the same arithmetic, in the same order, so the two agree to the last bit
 wherever the compiler contracts nothing (the kernel is built with
-``--fmad=false``).  Images of any float dtype are sampled in float32.
+``--fmad=false``).  Images of any float dtype are sampled in float32;
+int8 images (``quantize_int8``) are sampled as the reference's int8 kernel
+mode samples them, with 7-bit vertical weights and exact int32 sums.
 """
 
 from __future__ import annotations
@@ -18,6 +20,10 @@ from typing import Tuple
 import torch
 
 from surfacenet_tpu_torch.geometry.camera import project_rows
+
+# the int8 gather's scale of its exact int32 sums back to [0, 1]: 1/127^2,
+# the double rounded once to float32 (as the reference's kernel takes it)
+DEQUANT = torch.tensor(1.0 / (127.0 * 127.0), dtype=torch.float32).item()
 
 
 def _bilinear(flat: torch.Tensor, base, u, v, H: int, W: int):
@@ -40,6 +46,10 @@ def _bilinear(flat: torch.Tensor, base, u, v, H: int, W: int):
     u1i = (u0i + 1).clamp(max=W - 1)
     v1i = (v0i + 1).clamp(max=H - 1)
 
+    if flat.dtype == torch.int8:
+        return _bilinear_int8(flat, base, u0i, v0i, u1i, v1i, du, dv,
+                              W), inside
+
     def tap(vi, ui):
         return flat[base + vi * W + ui].float()
 
@@ -52,6 +62,32 @@ def _bilinear(flat: torch.Tensor, base, u, v, H: int, W: int):
         + tap(v1i, u0i) * w10 + tap(v1i, u1i) * w11
     )
     return out, inside
+
+
+def _bilinear_int8(flat, base, u0i, v0i, u1i, v1i, du, dv, W: int):
+    """The int8 gather's interpolation (the reference's int8 kernel mode).
+
+    Vertically, the two hat weights are rounded to 7 bits and each column's
+    int32 sum ``q[v0] * hv0 + q[v1] * hv1`` is exact; it is converted to
+    float32 and scaled by ``DEQUANT``.  Horizontally the float32 weights
+    ``1 - du`` and ``du`` combine the two columns.
+    """
+    hv0 = torch.round((1 - dv) * 127).to(torch.int32)[..., None]
+    hv1 = torch.round(dv * 127).to(torch.int32)[..., None]
+
+    def column(ui):
+        top = flat[base + v0i * W + ui].to(torch.int32)
+        bottom = flat[base + v1i * W + ui].to(torch.int32)
+        return (top * hv0 + bottom * hv1).float() * DEQUANT
+
+    return (column(u0i) * (1 - du)[..., None]
+            + column(u1i) * du[..., None])
+
+
+def quantize_int8(images: torch.Tensor) -> torch.Tensor:
+    """[0, 1] images -> int8 ``round(x * 127)`` (half to even), contiguous:
+    the image copy the int8 gather samples (made once per sweep)."""
+    return torch.round(images.float() * 127).to(torch.int8).contiguous()
 
 
 def bilinear_sample(image: torch.Tensor, uv: torch.Tensor, fill: float = 0.0):
@@ -117,7 +153,8 @@ def build_cvc_views(
     of the camera and projects inside the image; invalid voxels are zero.
 
     Args:
-      images: (V, H, W, 3) float32 or bfloat16.
+      images: (V, H, W, 3) float32 or bfloat16, or int8 from
+        ``quantize_int8`` (see ``_bilinear_int8``).
       Ps: (V, 3, 4) float32.
       view_idx: (B,) integer; origins: (B, 3) float32.
 

@@ -1,6 +1,18 @@
-"""Affine ray pooling: view-consistent thinning of the fused volume.
+"""Ray pooling: view-consistent thinning of the fused volume.
 
-Port of the affine half of ``surfacenet_tpu/ops/ray_pooling.py``.  Within a
+Port of ``surfacenet_tpu/ops/ray_pooling.py``: the exact mode and the
+affine mode (the MXU ``affine_matmul`` form is not ported).
+
+Exact mode (``ray_max_mask_exact``): every voxel centre is projected into
+the pooling view, voxels sharing a raster pixel (coarsened so that one ray
+is about one voxel column) form a ray, and a voxel is a ray maximum when
+its probability is within 1e-6 of the ray's maximum (the whole segment for
+window 0, else the voxel's depth bin and its two neighbours, bins of
+``window`` voxels of metric depth).  The reference computes it in XLA with
+scatter-max; here it is ``scatter_reduce_(..., "amax")`` batched over
+(cube, view) items.
+
+Affine mode: within a
 cube small next to its camera distance, the projection is near-affine and
 viewing rays are straight lines in voxel space with direction
 n = cross(dudx, dvdx).  Along the dominant axis of n, slab t is sheared by
@@ -20,13 +32,17 @@ masks over the active views of each cube.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from surfacenet_tpu_torch.geometry.camera import project, voxel_centers
+
 NEG = -1e30
+# side of the exact mode's raster window in (coarsened) pixels
+RASTER = 128
 # (o1, o2, dominant) axis permutation for each dominant ray axis
 PERMS = ((1, 2, 0), (0, 2, 1), (0, 1, 2))
 
@@ -194,3 +210,124 @@ def ray_vote_affine_plain(
                                      slopes[n_idx, k_idx], window)
     votes = torch.zeros(fused.shape, dtype=torch.int32, device=fused.device)
     return votes.index_add_(0, n_idx, mask.to(torch.int32))
+
+
+def ray_max_mask_exact(
+    probs: torch.Tensor, origins: torch.Tensor, s: float, Ps: torch.Tensor,
+    window: int = 0,
+) -> torch.Tensor:
+    """Exact ray-max mask of each item for its one pooling view.
+
+    The reference's ``ray_max_mask_single_view`` (with its defaults) over
+    items: a raster of ``RASTER``^2 pixels anchored at the footprint's first
+    pixel, coarsened so that one ray is about one voxel footprint and the
+    footprint fits; voxels outside the raster or behind the camera are never
+    maxima.
+
+    Args:
+      probs: (N, D, D, D) probability volumes; origins: (N, 3) cube
+        corners (mm); Ps: (N, 3, 4) the pooling view of each item.
+      window: 0 = segment max over the volume; > 0 = max over the voxel's
+        depth bin (``window`` voxels of metric depth) and its neighbours.
+
+    Returns (N, D, D, D) bool.
+    """
+    N, D = probs.shape[0], probs.shape[1]
+    R = RASTER
+    NB = 1 if window <= 0 else int(np.ceil(D * 1.7322 / window)) + 2
+    dev = probs.device
+    centers = (voxel_centers(torch.zeros(3, device=dev), D, s).reshape(-1, 3)
+               + origins.float()[:, None, :])  # (N, D^3, 3)
+    Pf = Ps.float()
+    uv, w = project(Pf, centers)
+    u, v = uv[..., 0], uv[..., 1]
+    infront = w > 0
+    big = 1e9
+
+    def masked_min(x, fill):
+        return torch.where(infront, x, fill).amin(dim=1, keepdim=True)
+
+    u_min, v_min = masked_min(u, big), masked_min(v, big)
+    u_max, v_max = -masked_min(-u, big), -masked_min(-v, big)
+    extent = torch.maximum(u_max - u_min, v_max - v_min)
+    # one ray ~ one voxel column, never finer than 1 px, and the footprint
+    # fits the raster
+    scale = torch.clamp(extent / D, min=1.0)
+    scale = torch.maximum(scale, (extent + 1.0) / (R - 1))
+    # non-finite coordinates (points on the camera plane) are never inside:
+    # zero them before the cast so the integer arithmetic stays defined
+    ui = torch.floor(torch.nan_to_num(u / scale)).long()
+    vi = torch.floor(torch.nan_to_num(v / scale)).long()
+    uu = ui - masked_min(ui, 2**30)
+    vv = vi - masked_min(vi, 2**30)
+    inside = infront & (uu >= 0) & (uu < R) & (vv >= 0) & (vv < R)
+    pid = torch.clamp(vv * R + uu, 0, R * R - 1)
+    pf = probs.reshape(N, -1).float()
+    contrib = torch.where(inside, pf, NEG)
+
+    if window <= 0:
+        cell = pid
+    else:
+        # metric ray depth: w / ||P[2, :3]|| is depth in mm for any row
+        # scaling of P; bins of `window` voxels of depth
+        depth = w / (torch.linalg.vector_norm(Pf[:, 2, :3], dim=-1,
+                                              keepdim=True) + 1e-12)
+        dmin = masked_min(depth, big)
+        b = torch.clamp(
+            torch.floor(torch.nan_to_num((depth - dmin) / (window * s)))
+            .long(), 0, NB - 1)
+        cell = pid * NB + b
+    base = torch.arange(N, device=dev)[:, None] * (R * R * NB)
+    buf = torch.full((N * R * R * NB,), NEG, dtype=pf.dtype, device=dev)
+    buf.scatter_reduce_(0, (base + cell).reshape(-1), contrib.reshape(-1),
+                        "amax")
+    ray_max = buf[base + cell]
+    if window > 0:
+        row = base + pid * NB
+        lo = torch.where(b > 0, buf[row + torch.clamp(b - 1, min=0)], NEG)
+        hi = torch.where(b < NB - 1,
+                         buf[row + torch.clamp(b + 1, max=NB - 1)], NEG)
+        ray_max = torch.maximum(ray_max, torch.maximum(lo, hi))
+    is_max = inside & (pf >= ray_max - 1e-6) & (ray_max > NEG / 2)
+    return is_max.reshape(probs.shape)
+
+
+def ray_pool(
+    probs: torch.Tensor, origins: torch.Tensor, s: float,
+    Ps_pool: torch.Tensor, taus, gamma: float,
+    view_mask: Optional[torch.Tensor] = None, window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact thinning of a batch of cubes (the reference's ``ray_pool``
+    over cubes, ``ray_pool_batch``, in its exact mode).
+
+    A voxel survives when it is a ray maximum in at least
+    ``max(ceil(gamma * n_views), 1)`` of its cube's active pooling views
+    and its probability exceeds the cube's tau.
+
+    Args:
+      probs: (N, D, D, D); origins: (N, 3); Ps_pool: (N, K, 3, 4);
+        taus: (N,) or a scalar.
+      view_mask: (N, K) bool; False marks padded slots that neither vote
+        nor count in the gamma denominator.
+
+    Returns (occupancy (N, D, D, D) bool, votes (N, D, D, D) int32).
+    """
+    N, D = probs.shape[0], probs.shape[1]
+    K = Ps_pool.shape[1]
+    items = probs.repeat_interleave(K, dim=0)
+    item_origins = origins.repeat_interleave(K, dim=0)
+    item_Ps = Ps_pool.reshape(N * K, 3, 4)
+    masks = ray_max_mask_exact(items, item_origins, s, item_Ps,
+                               window).reshape(N, K, D, D, D)
+    if view_mask is None:
+        n_views = torch.full((N,), K, device=probs.device)
+    else:
+        masks = masks & view_mask[:, :, None, None, None]
+        n_views = view_mask.sum(dim=1)
+    votes = masks.sum(dim=1, dtype=torch.int32)
+    need = torch.clamp(torch.ceil(gamma * n_views.float()).to(torch.int32),
+                       min=1)
+    taus = torch.as_tensor(taus, dtype=torch.float32, device=probs.device)
+    occ = ((votes >= need[:, None, None, None])
+           & (probs > taus.expand(N)[:, None, None, None]))
+    return occ, votes

@@ -7,16 +7,18 @@ that the production presets take:
      frustum prefilter, geometric pair selection, deduplicated view slots,
      core bounds, padding to fixed-size batches.
   2. Per batch on the device (``cube_batch_step``): the warp gather once
-     per (cube, distinct view) (CUDA kernel), colour centring and pair
-     assembly, the SurfaceNet forward, mean fusion, the affine ray-pooling
-     vote (CUDA kernel), tau/gamma thresholds, core claiming, best-pair
-     colour and compact top-k records.
+     per (cube, distinct view) (CUDA kernel; float32, bfloat16 or int8
+     images), colour centring and pair assembly, the SurfaceNet forward,
+     mean fusion, the ray-pooling vote (the affine vote kernel, or the
+     exact scatter-max raster), tau/gamma thresholds, core claiming,
+     best-pair colour and compact top-k records.
   3. Host harvest, pipelined three batches deep: unpack records, re-fetch
      truncated cubes dense, add to the ``SparseCubeStore``.
 
 Not ported yet (ROADMAP.md): the non-deduplicated gather, consensus
-fusion, the exact and matmul ray-pool modes, the int8 gather, learned
-pair selection, the resume ledger and the sharded sweep.
+fusion, the matmul ray-pool mode, the connected-component denoise
+(``fusion.min_component``), learned pair selection, the resume ledger and
+the sharded sweep.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ from surfacenet_tpu_torch.device import resolve_device
 from surfacenet_tpu_torch.geometry.camera import cube_visible
 from surfacenet_tpu_torch.ops.cuda.affine_vote import ray_vote_affine
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
-from surfacenet_tpu_torch.ops.cvc import center_cvc
+from surfacenet_tpu_torch.ops.cvc import center_cvc, quantize_int8
 from surfacenet_tpu_torch.ops.fusion import adaptive_threshold, fuse_pairs
+from surfacenet_tpu_torch.ops.ray_pooling import ray_pool
 from surfacenet_tpu_torch.ops.view_pairs import (
     dedup_view_slots, select_pairs_geometric,
 )
@@ -47,7 +50,8 @@ from surfacenet_tpu_torch.pipeline.sparse import CubeResult, SparseCubeStore
 # origins (B, 3) -> per-voxel probabilities (B, D, D, D) float32.
 Predictor = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
-GATHER_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+GATHER_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                 "int8": torch.int8}
 
 
 def _local_variance(v: torch.Tensor, window: int = 3) -> torch.Tensor:
@@ -165,7 +169,7 @@ def pool_views_for(uniq_views: torch.Tensor, n_pool_views: int, n_pairs: int):
 
 
 def cube_batch_step(
-    images: torch.Tensor,  # (V, H, W, 3) gather dtype
+    images: torch.Tensor,  # (V, H, W, 3) gather dtype (``gather_images``)
     Ps: torch.Tensor,  # (V, 3, 4) float32
     origins: torch.Tensor,  # (Nc, 3) float32
     pair_w: torch.Tensor,  # (Nc, Npairs) float32
@@ -187,6 +191,7 @@ def cube_batch_step(
     compact_output: bool = False,
     compact_k: int = 0,
     pool_window: int = 0,
+    ray_pool_mode: str = "affine",
 ):
     """One device step over a fixed-size batch of cubes.
 
@@ -195,7 +200,10 @@ def cube_batch_step(
     runs once per (cube, distinct view); raw colours feed both
     the colour output and, centred, the model input.  Pooling views are the
     cube's first K distinct views; padded slots do not vote and do not count
-    in the gamma denominator.  Returns (occupancy (Nc,D,D,D) bool, fused
+    in the gamma denominator.  ``ray_pool_mode`` "affine" or
+    "affine_pallas" votes with the affine vote kernel, "exact" with the
+    exact scatter-max raster (``ops/ray_pooling.py::ray_pool``).  Returns
+    (occupancy (Nc,D,D,D) bool, fused
     (Nc,D,D,D) f32, color (Nc,D,D,D,3) f32), or with ``compact_output``
     (records (Nc, K, 7) uint8, counts (Nc,) int32).
     """
@@ -243,15 +251,20 @@ def cube_batch_step(
                           device=fused.device)
 
     pool_views, view_mask = pool_views_for(uniq_views, n_pool_views, n_pairs)
-    votes = ray_vote_affine(
-        fused, origins, s, Ps[pool_views.long()], view_mask,
-        window=pool_window,
-    )
-    n_uniq = view_mask.sum(dim=1)
-    need = torch.clamp(
-        torch.ceil(gamma * n_uniq.float()).to(torch.int32), min=1
-    )[:, None, None, None]
-    occ = (votes >= need) & (fused > taus[:, None, None, None])
+    if ray_pool_mode == "exact":
+        occ, _ = ray_pool(fused, origins, s, Ps[pool_views.long()], taus,
+                          gamma, view_mask=view_mask,
+                          window=pool_window)
+    else:
+        votes = ray_vote_affine(
+            fused, origins, s, Ps[pool_views.long()], view_mask,
+            window=pool_window,
+        )
+        n_uniq = view_mask.sum(dim=1)
+        need = torch.clamp(
+            torch.ceil(gamma * n_uniq.float()).to(torch.int32), min=1
+        )[:, None, None, None]
+        occ = (votes >= need) & (fused > taus[:, None, None, None])
 
     if core_bounds is not None:
         ii = torch.arange(D, device=occ.device)
@@ -443,11 +456,19 @@ def sweep_gather_dtype(cfg: Config) -> torch.dtype:
     if not cfg.sweep.use_pallas_gather:
         return torch.float32
     if cfg.sweep.gather_dtype not in GATHER_DTYPES:
-        raise NotImplementedError(
-            f"gather_dtype={cfg.sweep.gather_dtype!r} is not ported; use "
-            "bfloat16 or float32"
+        raise ValueError(
+            f"gather_dtype={cfg.sweep.gather_dtype!r}: use one of "
+            f"{sorted(GATHER_DTYPES)}"
         )
     return GATHER_DTYPES[cfg.sweep.gather_dtype]
+
+
+def gather_images(images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The sweep's one image copy for the gather: ``images`` (float, [0, 1])
+    cast to ``dtype``, or for int8 quantized to ``round(x * 127)``."""
+    if dtype == torch.int8:
+        return quantize_int8(images)
+    return images.to(dtype).contiguous()
 
 
 def _check_supported(cfg: Config) -> None:
@@ -455,10 +476,16 @@ def _check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"fusion_mode={cfg.fusion.fusion_mode!r} is not ported (mean only)"
         )
-    if cfg.fusion.ray_pool_mode not in ("affine", "affine_pallas"):
+    if cfg.fusion.ray_pool_mode not in ("exact", "affine", "affine_pallas"):
         raise NotImplementedError(
             f"ray_pool_mode={cfg.fusion.ray_pool_mode!r} is not ported; the "
-            "port runs the affine vote for 'affine' and 'affine_pallas'"
+            "port runs 'exact', and the affine vote for 'affine' and "
+            "'affine_pallas'"
+        )
+    if cfg.fusion.min_component > 1:
+        raise NotImplementedError(
+            f"fusion.min_component={cfg.fusion.min_component}: the "
+            "connected-component denoise is not ported; use 0"
         )
     if cfg.mesh.block_axis > 1:
         raise NotImplementedError("the sharded sweep is not ported")
@@ -520,7 +547,7 @@ def run_sweep(
     if plan.n == 0:
         return store, stats
 
-    images_g = images_t.to(gdt).contiguous()
+    images_g = gather_images(images_t, gdt)
     Ps_d = torch.as_tensor(np.asarray(Ps), dtype=torch.float32, device=dev)
     B = cfg.sweep.cube_batch
     n = plan.n
@@ -533,6 +560,7 @@ def run_sweep(
         adaptive_taus=tuple(cfg.fusion.adaptive_taus),
         adaptive_target_density=cfg.fusion.adaptive_target_density,
         compact_k=cfg.sweep.compact_k, pool_window=pool_window,
+        ray_pool_mode=cfg.fusion.ray_pool_mode,
     )
 
     def dispatch(b0):

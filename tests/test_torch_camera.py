@@ -133,6 +133,27 @@ def test_sphere_scene_and_ply_roundtrip(tmp_path):
     np.testing.assert_array_equal(col, ref_col)
 
 
+def test_tori_scene_matches_reference():
+    """The tori golden scene: images, matrices, bbox and surface samples
+    bit-identical to the reference's; the samples lie on the surface."""
+    from surfacenet_tpu.data.synthetic import make_tori_scene as jscene
+    from surfacenet_tpu_torch.data.synthetic import make_tori_scene
+
+    a = make_tori_scene(n_views=3, hw=(48, 64))
+    b = jscene(n_views=3, hw=(48, 64))
+    np.testing.assert_array_equal(a.images, b.images)
+    np.testing.assert_array_equal(a.Ps, b.Ps)
+    np.testing.assert_array_equal(a.bbox_min, b.bbox_min)
+    np.testing.assert_array_equal(a.bbox_max, b.bbox_max)
+    pts = a.surface_points(300, seed=2)
+    np.testing.assert_array_equal(pts, b.surface_points(300, seed=2))
+    np.testing.assert_allclose(a.surface_distance(pts), 0.0, atol=1e-9)
+    centers = np.random.default_rng(1).uniform(-30, 40, (200, 3))
+    np.testing.assert_array_equal(a.occupancy(centers, 2.0),
+                                  b.occupancy(centers, 2.0))
+    assert (a.images != 0.1).any()  # the tori are in view
+
+
 def test_scan_roundtrip_matches_reference_loader(tmp_path):
     from surfacenet_tpu.data.dtu import load_scan as j_load
     from surfacenet_tpu_torch.data.dtu import load_scan, write_scan

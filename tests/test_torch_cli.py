@@ -1,11 +1,20 @@
-"""The port's CLI on the CPU, and its refusal to fall back to the CPU."""
+"""The port's CLI on the CPU, and its refusal to fall back to the CPU.
+
+``selftest`` (sphere: exact pooling; tori: affine, window 1) against the
+reference's ``run_sweep`` and ``accuracy_completeness`` on the same config
+and scene: merged voxel sets agree on >= 0.99 of their union, accuracy and
+completeness within 2%.  ``eval`` against the reference's metrics within
+1e-4 relative (the float32 distance expansion; tests/test_torch_metrics.py).
+The reference sweeps once per scene, shared by the module.
+"""
 
 import numpy as np
 import pytest
 import torch
 
-from surfacenet_tpu_torch.cli import main
-from surfacenet_tpu_torch.utils.ply import read_ply
+from surfacenet_tpu_torch.cli import main, selftest_setup
+from surfacenet_tpu_torch.utils.metrics import voxel_set_agreement
+from surfacenet_tpu_torch.utils.ply import read_ply, write_ply
 
 torch.set_num_threads(2)
 
@@ -13,8 +22,46 @@ TINY = [
     "--set", "voxel.cube_size=16", "--set", "voxel.voxel_size_mm=2.0",
     "--set", "voxel.overlap=4", "--set", "fusion.n_view_pairs=2",
     "--set", "fusion.tau=0.25", "--set", "sweep.cube_batch=8",
-    "--set", "fusion.ray_pool_mode=affine",  # the default "exact" waits
+    "--set", "fusion.ray_pool_mode=affine",
 ]
+
+
+@pytest.fixture(scope="module")
+def reference_selftest():
+    """The reference's selftest per scene: its Config, built as its
+    ``cli selftest`` builds it, the swept points and the metrics."""
+    from surfacenet_tpu.config import (
+        Config, FusionConfig, SweepConfig, VoxelConfig,
+    )
+    from surfacenet_tpu.pipeline.sweep import (
+        photoconsistency_predictor, run_sweep,
+    )
+    from surfacenet_tpu.utils.metrics import accuracy_completeness
+
+    runs = {}
+
+    def get(scene):
+        if scene not in runs:
+            hard = scene == "tori"
+            cfg = Config(
+                voxel=VoxelConfig(voxel_size_mm=2.0, cube_size=16,
+                                  overlap=4),
+                fusion=FusionConfig(
+                    n_view_pairs=3, tau=0.25, gamma=0.6,
+                    **({"pool_window_vox": 1, "ray_pool_mode": "affine"}
+                       if hard else {}),
+                ),
+                sweep=SweepConfig(cube_batch=8),
+            )
+            _, sc = selftest_setup(scene)  # bit-identical scenes
+            store, _ = run_sweep(sc.images, sc.Ps, sc.bbox_min, sc.bbox_max,
+                                 cfg, photoconsistency_predictor)
+            pts, _, _ = store.merge()
+            runs[scene] = (cfg, pts, accuracy_completeness(
+                pts, sc.surface_points(4000)))
+        return runs[scene]
+
+    return get
 
 
 @pytest.fixture(scope="module")
@@ -104,6 +151,66 @@ def test_reconstruct_cli_fused_inference_runs_the_fused_forward(
     assert np.isfinite(pts).all()
 
 
+@pytest.mark.parametrize("scene", ["sphere", "tori"])
+def test_selftest_matches_reference(reference_selftest, scene, capsys):
+    from surfacenet_tpu_torch.config import Config
+
+    cfg_j, pts_j, (acc_j, comp_j) = reference_selftest(scene)
+    cfg_t, _ = selftest_setup(scene)
+    assert cfg_t == Config.from_json(cfg_j.to_json())
+    assert cfg_t.fusion.ray_pool_mode == ("affine" if scene == "tori"
+                                          else "exact")
+    pts, acc, comp, stats = main(["selftest", "--scene", scene,
+                                  "--device", "cpu"])
+    assert capsys.readouterr().out.startswith(f"selftest: {len(pts)} points")
+    assert len(pts) > 500
+    assert voxel_set_agreement(pts, pts_j) >= 0.99
+    np.testing.assert_allclose([acc, comp], [acc_j, comp_j], rtol=0.02)
+
+
+@pytest.mark.parametrize("protocol", ["clamp", "dtu"])
+def test_eval_cli_matches_reference(tmp_path, protocol):
+    from surfacenet_tpu.utils.metrics import ObsMask as JMask
+    from surfacenet_tpu.utils.metrics import accuracy_completeness, dtu_eval
+    from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
+
+    sc = make_sphere_scene(n_views=4, hw=(60, 80))
+    rng = np.random.default_rng(3)
+    gt = sc.surface_points(2000)
+    pred = gt[:1500] * (1 + rng.normal(0, 0.02, (1500, 1)))
+    pred[:30] += rng.uniform(-30, 30, (30, 3))
+    pred_path, gt_path = str(tmp_path / "pred.ply"), str(tmp_path / "gt.ply")
+    write_ply(pred_path, pred)
+    write_ply(gt_path, gt)
+    pred32, gt32 = read_ply(pred_path)[0], read_ply(gt_path)[0]
+    args = ["eval", "--pred", pred_path, "--gt", gt_path, "--max-dist",
+            "4", "--device", "cpu", "--protocol", protocol]
+    if protocol == "clamp":
+        got = main(args)
+        acc, comp = accuracy_completeness(pred32, gt32, max_dist=4.0)
+        ref = {"acc_mean_mm": acc, "comp_mean_mm": comp}
+    else:
+        mask = JMask.from_cameras(sc.Ps, (60, 80), sc.bbox_min, sc.bbox_max)
+        mask_path = str(tmp_path / "mask.npz")
+        mask.save(mask_path)
+        got = main(args + ["--obs-mask", mask_path, "--plane", "0,0,1,3"])
+        ref = dtu_eval(pred32, gt32, max_dist=4.0, obs_mask=mask,
+                       plane=[0, 0, 1, 3])
+        assert got["n_pred_eval"] == ref["n_pred_eval"] < len(pred)
+        assert got["n_gt_eval"] == ref["n_gt_eval"] < len(gt)
+    for k in ("acc_mean_mm", "comp_mean_mm"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, err_msg=k)
+    assert np.isfinite(got["overall_mm"])
+
+
+def test_reconstruct_cli_refuses_min_component(tmp_path, scan_dir):
+    """The denoise is not ported: a config that asks for it fails."""
+    with pytest.raises(NotImplementedError, match="min_component"):
+        main(["reconstruct", "--scan", scan_dir, "--out",
+              str(tmp_path / "x.ply"), "--device", "cpu", *TINY,
+              "--set", "fusion.min_component=5"])
+
+
 def test_entry_points_refuse_missing_cuda(scan_dir, tmp_path, monkeypatch):
     """Without a card, every entry point raises unless the CPU is asked for."""
     from surfacenet_tpu_torch.cli import reconstruct_scan
@@ -128,6 +235,8 @@ def test_entry_points_refuse_missing_cuda(scan_dir, tmp_path, monkeypatch):
                                    scan.bbox_max),
         lambda: main(["reconstruct", "--scan", scan_dir, "--out",
                       str(tmp_path / "y.ply")]),
+        lambda: main(["selftest"]),
+        lambda: main(["eval", "--pred", "p.ply", "--gt", "g.ply"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -23,6 +23,7 @@ from surfacenet_tpu_torch.ops.cvc import build_cvc_views
 from surfacenet_tpu_torch.ops.ray_pooling import (
     ray_max_mask_affine_batch, ray_vote_affine_plain, vote_params,
 )
+from surfacenet_tpu_torch.pipeline.sweep import gather_images
 
 torch.set_num_threads(2)
 
@@ -39,11 +40,11 @@ def scene():
     return make_sphere_scene(n_views=4, hw=(96, 128))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
 def test_warp_gather_kernel_matches_plain(cuda, scene, dtype):
     rng = np.random.default_rng(0)
     D, s, B = 32, 1.5, 7
-    images = torch.as_tensor(scene.images, device=cuda).to(dtype).contiguous()
+    images = gather_images(torch.as_tensor(scene.images, device=cuda), dtype)
     Ps = torch.as_tensor(scene.Ps, dtype=torch.float32, device=cuda)
     views = torch.as_tensor(rng.integers(0, 4, B), dtype=torch.int32,
                             device=cuda)
@@ -58,6 +59,8 @@ def test_warp_gather_kernel_matches_plain(cuda, scene, dtype):
     both = vk & vp
     assert (ck - cp).abs()[both].max().item() <= 1e-3
     assert (ck[~vk] == 0).all()
+    if dtype == torch.int8:  # integer sums, --fmad=false: bitwise
+        assert torch.equal(ck, cp) and torch.equal(vk, vp)
 
 
 @pytest.mark.parametrize("window", [0, 2])

@@ -3,7 +3,8 @@
 Bars from tests/test_pallas.py: validity agreement >= 0.999, colour error
 <= 1e-4 in float32 against the XLA oracle, and <= 1e-2 in bfloat16 against
 the Pallas kernel run in interpret mode (its windows cover the footprint
-here, so its window term does not bite).
+here, so its window term does not bite).  The int8 mode against the
+Pallas kernel's int8 mode: the bounds stated in its test.
 """
 
 import jax.numpy as jnp
@@ -14,7 +15,7 @@ import torch
 from surfacenet_tpu.ops.cvc import build_cvc_views as j_views
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
 from surfacenet_tpu_torch.ops.cvc import (
-    bilinear_sample, build_cvc, build_cvc_views, center_cvc,
+    bilinear_sample, build_cvc, build_cvc_views, center_cvc, quantize_int8,
 )
 
 torch.set_num_threads(2)
@@ -72,6 +73,40 @@ def test_gather_bf16_matches_pallas_interpret(scene):
     assert (v_t == v_p).mean() >= 0.999
     both = v_t & v_p
     assert np.abs(c_t[both] - c_p[both]).max() <= 1e-2
+
+
+def test_gather_int8_matches_pallas_interpret(scene):
+    """The int8 mode: the same int8 image (round(x * 127)) and 7-bit
+    vertical weights on both sides, crops covering the whole image.  The
+    reference's reciprocal-plus-Newton and the port's division may differ
+    by an ulp in u or v: colours agree within 1e-5 on >= 0.999 of the valid
+    voxels, and within 8e-3 (one 7-bit weight step) everywhere."""
+    from surfacenet_tpu.ops.pallas.warp_gather import warp_gather_pallas
+
+    H, W = scene.images.shape[1:3]
+    c_p, v_p = warp_gather_pallas(
+        jnp.asarray(scene.images), jnp.asarray(scene.Ps, jnp.float32),
+        jnp.asarray(VIEWS), jnp.asarray(ORIGINS), D=D, s=S, CH=H, CW=W,
+        PC=512, interpret=True, in_dtype=jnp.int8,
+    )
+    q = quantize_int8(torch.tensor(scene.images))
+    assert q.dtype == torch.int8
+    np.testing.assert_array_equal(
+        q.numpy(), np.round(scene.images * np.float32(127)).astype(np.int8))
+    c_t, v_t = warp_gather(q, torch.tensor(scene.Ps, dtype=torch.float32),
+                           torch.tensor(VIEWS), torch.tensor(ORIGINS), D=D,
+                           s=S)
+    c_p, v_p = np.asarray(c_p), np.asarray(v_p)
+    c_t, v_t = c_t.numpy(), v_t.numpy()
+    assert (v_t == v_p).mean() >= 0.999
+    both = v_t & v_p
+    err = np.abs(c_t[both] - c_p[both]).max(axis=-1)
+    assert (err <= 1e-5).mean() >= 0.999
+    assert err.max() <= 8e-3
+    assert (c_t[~v_t] == 0).all()
+    # the error class of the mode against the float32 oracle
+    c_f, v_f = _port(scene)
+    assert np.abs(c_t[v_t] - c_f.numpy()[v_t]).max() <= 1.5e-2
 
 
 def test_bf16_gather_samples_the_rounded_image_exactly(scene):

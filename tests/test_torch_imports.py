@@ -47,7 +47,7 @@ assert not os.path.exists(_build.BUILD_DIR) or not any(
     f.endswith(".so") and os.path.getmtime(os.path.join(_build.BUILD_DIR, f))
     > START for f in os.listdir(_build.BUILD_DIR)
 )
-print("IMPORTED", len(names))
+print("IMPORTED", " ".join(names))
 """
 
 
@@ -61,8 +61,12 @@ def test_port_imports_without_jax_pil_or_reference_package():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 20  # every subpackage and module was walked
+    names = set(proc.stdout.split("IMPORTED")[1].split())
+    assert len(names) >= 20  # every subpackage and module was walked
+    # the modules that replace PIL and the JAX package's metrics
+    assert {"surfacenet_tpu_torch.data.png", "surfacenet_tpu_torch.data.dtu",
+            "surfacenet_tpu_torch.utils.metrics",
+            "surfacenet_tpu_torch.cli"} <= names
 
 
 def test_sources_name_no_reference_imports():

@@ -7,6 +7,10 @@ bar of tests/test_pallas.py).  Against the sum of the reference's XLA
 The affine-pool mask (plain version of the mask kernel) against the
 reference's ``ray_max_mask_affine_pallas`` in interpret mode: agreement
 >= 0.999 per item (the bar tests/test_pallas.py holds the reference to).
+
+The exact mode (scatter-max raster, plain PyTorch as the reference's is
+XLA) against the reference's ``ray_max_mask_single_view`` and
+``ray_pool``: masks, votes and occupancy agree on >= 0.999.
 """
 
 import jax.numpy as jnp
@@ -26,7 +30,8 @@ from surfacenet_tpu_torch.ops.cuda.affine_vote import (
 )
 from surfacenet_tpu_torch.ops.ray_pooling import (
     _projection_jacobian, item_params, ray_max_mask_affine,
-    ray_max_mask_affine_batch, ray_vote_affine_plain, vote_params,
+    ray_max_mask_affine_batch, ray_max_mask_exact, ray_pool,
+    ray_vote_affine_plain, vote_params,
 )
 
 torch.set_num_threads(2)
@@ -191,3 +196,62 @@ def test_affine_pool_rejects_bad_inputs():
         args = dict(probs=probs, axis=axis, slopes=slopes) | bad
         with pytest.raises(ValueError):
             affine_pool(**args)
+
+
+@pytest.mark.parametrize("window", [0, 2])
+def test_exact_mask_matches_reference(mask_case, window):
+    """The exact (scatter-max raster) mask against the reference's
+    ``ray_max_mask_single_view`` on each item: agreement >= 0.999 per item
+    (the two project with differently rounded divisions, so a voxel centre
+    on a raster-cell or depth-bin edge may fall on either side)."""
+    import jax
+
+    from surfacenet_tpu.ops.ray_pooling import ray_max_mask_single_view
+
+    probs, origins, Ps = mask_case
+    ref = np.asarray(jax.vmap(
+        lambda p, o, P: ray_max_mask_single_view(p, o, S, P, window=window)
+    )(jnp.asarray(probs), jnp.asarray(origins), jnp.asarray(Ps)))
+    got = ray_max_mask_exact(torch.tensor(probs), torch.tensor(origins), S,
+                             torch.tensor(Ps), window=window).numpy()
+    assert got.dtype == bool and got.shape == probs.shape
+    agree = (got == ref).reshape(len(probs), -1).mean(axis=1)
+    assert (agree >= 0.999).all(), agree
+    assert 0.01 < got.mean() < 0.9
+
+
+@pytest.mark.parametrize("window", [0, 2])
+def test_exact_ray_pool_matches_reference(case, window):
+    """The exact ``ray_pool`` with padded pooling slots against the
+    reference's ``ray_pool(mode="exact")`` per cube, and without a mask
+    against its ``ray_pool_batch`` with views shared by every cube: votes
+    and occupancy agree on >= 0.999 of the voxels."""
+    import jax
+
+    from surfacenet_tpu.ops.ray_pooling import ray_pool as j_pool
+    from surfacenet_tpu.ops.ray_pooling import ray_pool_batch as j_batch
+
+    probs, origins, Ps_pool, mask = case
+    taus = np.array([0.3, 0.5, 0.2, 0.4], np.float32)
+    occ_j, votes_j = jax.vmap(
+        lambda p, o, P, t, m: j_pool(p, o, S, P, t, 0.6, mode="exact",
+                                     view_mask=m, window=window)
+    )(jnp.asarray(probs), jnp.asarray(origins), jnp.asarray(Ps_pool),
+      jnp.asarray(taus), jnp.asarray(mask))
+    occ_t, votes_t = ray_pool(
+        torch.tensor(probs), torch.tensor(origins), S, torch.tensor(Ps_pool),
+        torch.tensor(taus), 0.6, view_mask=torch.tensor(mask), window=window)
+    assert votes_t.dtype == torch.int32 and occ_t.dtype == torch.bool
+    assert (votes_t.numpy() == np.asarray(votes_j)).mean() >= 0.999
+    assert (occ_t.numpy() == np.asarray(occ_j)).mean() >= 0.999
+    assert occ_t.any()
+    shared = Ps_pool[0]
+    occ_j, votes_j = j_batch(jnp.asarray(probs), jnp.asarray(origins), S,
+                             jnp.asarray(shared), 0.3, 0.5, mode="exact",
+                             window=window)
+    occ_t, votes_t = ray_pool(
+        torch.tensor(probs), torch.tensor(origins), S,
+        torch.tensor(shared).expand(len(probs), *shared.shape), 0.3, 0.5,
+        window=window)
+    assert (votes_t.numpy() == np.asarray(votes_j)).mean() >= 0.999
+    assert (occ_t.numpy() == np.asarray(occ_j)).mean() >= 0.999

@@ -1,8 +1,9 @@
 """Port parity: one cube batch step and the whole sweep.
 
 ``cube_batch_step`` against the reference's kernel path (Pallas gather and
-Pallas affine vote in interpret mode, float32 gather, windows covering the
-images): occupancy agreement >= 0.995, fused probability within 1e-4.
+Pallas affine vote in interpret mode, windows covering the images):
+occupancy agreement >= 0.995; with the float32 gather, fused probability
+within 1e-4; with the int8 gather, the bounds stated in the test.
 ``run_sweep`` end to end against the reference's CPU sweep: voxel-set
 agreement >= 0.99 of the exported points.
 """
@@ -21,6 +22,7 @@ from surfacenet_tpu.config import (
     Config, FusionConfig, ModelConfig, SweepConfig, VoxelConfig,
 )
 from surfacenet_tpu_torch.config import Config as TConfig
+from surfacenet_tpu_torch.utils.metrics import voxel_set_agreement
 
 torch.set_num_threads(2)
 
@@ -81,12 +83,22 @@ def _tiny_predictors():
     return j_pred, make_predictor(net, tcfg, "cpu")
 
 
-@pytest.mark.parametrize("predictor,adaptive", [
-    ("photoconsistency", False), ("tiny_net", False),
-    ("photoconsistency", True),
-])
+@pytest.mark.parametrize("predictor,adaptive,gather", [
+    ("photoconsistency", False, "float32"), ("tiny_net", False, "float32"),
+    ("photoconsistency", True, "float32"),
+    ("photoconsistency", False, "int8"),
+], ids=["photoconsistency-False", "tiny_net-False", "photoconsistency-True",
+        "photoconsistency-False-int8"])
 def test_cube_batch_step_matches_pallas_path(scene, batch, predictor,
-                                             adaptive):
+                                             adaptive, gather):
+    """float32 gather: fused and colour within 1e-4.  int8 gather (both
+    sides sample the same int8 image with 7-bit vertical weights): the
+    reference projects with a Newton-refined reciprocal, the port divides,
+    so u and v may differ by an ulp; that moves a colour by <= 1e-5
+    (measured 5.1e-6), and where it moves round(127 dv) by one step, by up
+    to 1/127 (< 8e-3) on a few voxels.  Those few voxels move the
+    photoconsistency probability by up to ~1e-2 (measured 1.36e-3 max, on
+    0.018% of voxels); elsewhere fused agrees within 1e-4."""
     if predictor == "photoconsistency":
         j_pred, t_pred = J.photoconsistency_predictor, \
             T.photoconsistency_predictor
@@ -100,20 +112,26 @@ def test_cube_batch_step_matches_pallas_path(scene, batch, predictor,
         **{k: jnp.asarray(v) for k, v in batch.items()}, predict=j_pred,
         use_pallas=True,
         ray_pool_mode="affine_pallas", pallas_interpret=True,
-        crop_hw=(H, W), gather_dtype="float32", **kw,
+        crop_hw=(H, W), gather_dtype=gather, **kw,
     )
     got = T.cube_batch_step(
-        torch.tensor(scene.images), torch.tensor(scene.Ps,
-                                                 dtype=torch.float32),
+        T.gather_images(torch.tensor(scene.images), T.GATHER_DTYPES[gather]),
+        torch.tensor(scene.Ps, dtype=torch.float32),
         **_port_args(batch), predict=t_pred, **kw,
     )
     occ_j, fused_j, color_j = (np.asarray(a) for a in ref)
     occ_t, fused_t, color_t = (a.numpy() for a in got)
     assert occ_t.shape == (4, D, D, D) and color_t.shape == (4, D, D, D, 3)
-    assert np.abs(fused_t - fused_j).max() <= 1e-4
     assert (occ_t == occ_j).mean() >= 0.995
     assert occ_t.any()
-    assert np.abs(color_t - color_j).max() <= 1e-4
+    d_fused = np.abs(fused_t - fused_j)
+    d_color = np.abs(color_t - color_j)
+    if gather == "float32":
+        assert d_fused.max() <= 1e-4
+        assert d_color.max() <= 1e-4
+    else:
+        assert (d_fused <= 1e-4).mean() >= 0.999 and d_fused.max() <= 1e-2
+        assert (d_color <= 1e-5).mean() >= 0.999 and d_color.max() <= 8e-3
 
 
 def test_cube_batch_step_fused_inference_matches_reference(scene, batch):
@@ -209,12 +227,6 @@ def _configs(**sweep_kw):
     return cfg, TConfig.from_json(cfg.to_json())
 
 
-def _voxel_agreement(a, b):
-    A = set(map(tuple, np.round(a, 3)))
-    B = set(map(tuple, np.round(b, 3)))
-    return len(A & B) / max(len(A | B), 1)
-
-
 def test_run_sweep_matches_reference(scene):
     jcfg, tcfg = _configs(compact_k=20)  # small: exercises the re-fetch
     js, jstats = J.run_sweep(scene.images, scene.Ps, scene.bbox_min,
@@ -229,7 +241,7 @@ def test_run_sweep_matches_reference(scene):
     assert tstats.n_cubes_after_prefilter == jstats.n_cubes_after_prefilter
     assert tstats.n_cubes_nonempty == jstats.n_cubes_nonempty
     assert tstats.n_refetched > 0
-    assert _voxel_agreement(pt, pj) >= 0.99
+    assert voxel_set_agreement(pt, pj) >= 0.99
 
 
 def test_run_sweep_with_refinement_and_kernel_path_config(scene):
@@ -252,7 +264,8 @@ def test_run_sweep_with_refinement_and_kernel_path_config(scene):
 
 def test_sweep_rejects_unported_branches(scene):
     _, tcfg = _configs()
-    for fusion in (dict(fusion_mode="consensus"), dict(ray_pool_mode="exact")):
+    for fusion in (dict(fusion_mode="consensus"), dict(min_component=2),
+                   dict(ray_pool_mode="affine_matmul")):
         bad = tcfg.replace(fusion=dataclasses.replace(tcfg.fusion, **fusion))
         with pytest.raises(NotImplementedError):
             T.run_sweep(scene.images, scene.Ps, scene.bbox_min,
