@@ -6,7 +6,8 @@ Phases (each announced on its own line before it starts; any failure ends
 the run with a non-zero exit code and no result line):
 
   1. device: the card's name and power limit, PyTorch and CUDA versions;
-  2. build: both CUDA kernels, one ``nvcc`` per source, in parallel;
+  2. build: the four CUDA kernel sources, one ``nvcc`` per source, in
+     parallel;
   3. scene: the golden sphere in memory, 12 views of 600x800;
   4. main path: ``cli.reconstruct_scan`` with the ``dtu9_full`` preset
      (fast64 SurfaceNet in bf16 with seeded random weights, 64^3 cubes,
@@ -27,9 +28,12 @@ the run with a non-zero exit code and no result line):
      conv kernel ran 7 times a forward (a positive multiple of 7, at least
      7 per batch) and the gather and the vote ran too;
   8. the conv kernel against its plain version at each of the forward's
-     seven layer shapes (120 items), with its time, its bound and cuDNN's
-     time for the same layer (``F.conv3d``, bf16, channels-last, bias and
-     ReLU: timed only, never called by the port); then the whole fused
+     seven layer shapes (120 items), with its route (``wgmma`` for Cin a
+     multiple of 8, ``wmma_scalar`` for the first layer's Cin 6), its time
+     and TFLOP/s, its bound and cuDNN's time for the same layer
+     (``F.conv3d``, bf16, channels-last, bias and ReLU: timed only, never
+     called by the port), and the six wgmma layers' sum beside cuDNN's sum
+     for the same six; then the whole fused
      forward, kernel route against plain route and against the unfused
      cuDNN forward with the same weights, and the warm fused batch step's
      breakdown;
@@ -484,7 +488,9 @@ def main() -> int:
                    + M * cout * 2)
         b_ms, b_by = bound(n_bytes, flops, PEAK_BF16_S)
         layer = {"R": R, "cin": cin, "cout": cout, "dil": dil,
-                 "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                 "route": "wgmma" if cin % 8 == 0 else "wmma_scalar",
+                 "ms": k_ms, "tflops": flops / (k_ms * 1e-3) / 1e12,
+                 "plain_ms": p_ms, "library_ms": lib_ms,
                  "bound_ms": b_ms, "bound_by": b_by,
                  "tflop": flops / 1e12, "gb": n_bytes / 1e9,
                  "within_one_bf16_ulp": share, "max_abs_err": err}
@@ -496,6 +502,11 @@ def main() -> int:
             raise RuntimeError(
                 f"conv3d disagrees with its plain version at R {R}, "
                 f"{cin}->{cout}, dil {dil}: {share:.6f} within one bf16 ulp")
+    wgmma_layers = [layer for layer in layers if layer["route"] == "wgmma"]
+    log(f"conv3d wgmma route, {len(wgmma_layers)} layers: kernel "
+        f"{sum(layer['ms'] for layer in wgmma_layers):.4f} ms, cuDNN "
+        f"{sum(layer['library_ms'] for layer in wgmma_layers):.4f} ms, bound "
+        f"{sum(layer['bound_ms'] for layer in wgmma_layers):.4f} ms")
 
     x = torch.randn((net_items, D, D, D, 6), device=dev,
                     generator=gen_d).to(torch.bfloat16)

@@ -11,7 +11,8 @@
 // Layouts (the reference's): x (B, R, R, R, Cin) bf16 NDHWC; w (27*Cin,
 // Cout) bf16 with rows tap-major, tap (dz, dy, dx) in {-dil, 0, dil}^3 in C
 // order, then cin (DHWIO reshaped); bias (Cout,) f32; out (B, R, R, R,
-// Cout) bf16.  Cout is a multiple of 8.
+// Cout) bf16.  Cout is a multiple of 8.  The wgmma route also takes wt, the
+// wrapper's K-contiguous copy of w, (Cout, 27*Cin).
 //
 // The GEMM: M = B*R^3 output voxels, N = Cout, K = 27*Cin.  At the
 // dtu9_full point (fast64 widths, 120 items of 64^3 a forward) its seven
@@ -22,26 +23,66 @@
 //   R 16, 128 -> 128, dil 1:  435 GFLOP, 0.25 GB  0.44 ms (operations) x2
 //   R 16, 128 -> 256, dil 2:  870 GFLOP, 0.38 GB  0.88 ms (operations)
 //   R 16, 256 -> 256, dil 2: 1739 GFLOP, 0.50 GB  1.76 ms (operations)
-// so all but the first layer are tensor-core bound.
+// so all but the first layer are tensor-core bound.  The entry conv3d()
+// dispatches by Cin to one of two routes.
 //
-// Design (simple first; wgmma, TMA and a deeper pipeline are later work):
-// one block of 256 threads computes a tile of 128 voxels x BN (32, 64 or
-// 128) output channels, looping over K in chunks of 32.  For each chunk
-// the threads build the im2col A tile (128 x 32) in shared memory straight
-// from x: every k decodes into (tap, cin) and the tap into a neighbour
-// offset, and a neighbour outside the volume (SAME padding) or k >= K
-// reads as zero.  With Cin a multiple of 8 a thread moves 8 channels of
-// one tap in one 16-byte load; otherwise (the first layer's Cin = 6) it
-// loads scalars.  The B tile (32 x BN) comes from w with 16-byte loads.
-// Two shared-memory stages: the next chunk's loads are issued into
-// registers before the current chunk's products, so global latency
-// overlaps the tensor-core work, with one barrier per chunk.  Eight warps
-// (4 along M x 2 along N) multiply with nvcuda::wmma 16x16x16 (bf16 in,
-// f32 accumulate).  The epilogue stages each 16x16 accumulator through
-// shared memory, adds the bias in f32, applies ReLU, rounds to bf16 (to
-// nearest even) and stores 8 channels per 16-byte store, NDHWC.  Blocks
+// Route 1, Cin % 8 == 0 (the six tensor-bound layers): wgmma.  One block
+// of two warpgroups (256 threads) computes 128 voxels x BN channels,
+// looping over K in chunks of 64 (one 128-byte row per voxel or channel);
+// warpgroup g owns rows 64g..64g+63.  Ragged M and N are masked in the
+// epilogue, ragged K is zero-filled.  Both operands sit in shared memory in
+// the 128-byte swizzle (16-byte piece p of row r at p ^ (r & 7)) and feed
+// wgmma.mma_async m64nBNk16 (bf16 in, f32 sums in registers) through
+// descriptors: K-major, SBO 1024 B per 8 rows, start +32 B per k16 step,
+// stages on 1024-byte boundaries.  The tiles are filled with cp.async.cg
+// 16-byte copies: a piece of A is 8 channels of one tap of one voxel
+// (Cin % 8 == 0), found through a shared-memory table of (neighbour
+// offset, tap) per 8-wide k built once a block; each thread keeps a 27-bit
+// mask of its voxels' in-volume taps, so SAME padding and the K tail are a
+// src_size of 0 (zero fill), not a branch.  Eight threads fill one
+// 128-byte row, so a warp reads four whole rows.  B comes from wt,
+// K-contiguous so that both operands are K-major: the wrapper transposes w
+// per call (at most 3.5 MB, timed with the kernel).  The ring: each chunk
+// starts with one barrier, after cp.async.wait_group and fence.proxy.async
+// (cp.async writes through the generic proxy, wgmma reads through the
+// async proxy); then the stage that chunk c - 2's wgmma read is refilled
+// with chunk c + 1, and wgmma runs on chunk c while chunk c - 1's group
+// may still be in flight (wgmma.wait_group 1 before the next barrier frees
+// its stage).  The epilogue adds the bias in f32, applies ReLU and rounds
+// to bf16 (to nearest even) on the accumulator fragments, stages the tile
+// in the ring and stores it 16 bytes a thread, whole rows a warp.  Blocks
 // of neighbouring index take the N tiles of one M tile, so the im2col
 // reads of a voxel tile are shared through L2.
+//
+// Tile sizes and why (scripts/torch_conv3d_variants.py times the
+// alternatives on the card; PERF.md has its numbers):
+//   BN 128 for Cout >= 128 (64 accumulators a thread), BN 64 below (narrow
+//     layers, the tests' ragged N): the largest tile that leaves two
+//     blocks an SM;
+//   3 stages, 97 KB of shared memory at BN 128 (116 registers a thread):
+//     two blocks share an SM, so one block's barrier waits, prologue and
+//     epilogue overlap the other's products.  4 stages (one block an SM)
+//     were slower, and a 256-wide N tile for Cout 256 was no faster;
+//   the refill issued right after the barrier, before the wgmma: issued
+//     after wgmma.wait_group instead, the copies have one wgmma less to
+//     land in, and the kernel is slower;
+//   cp.async.cg (L2 only) for A: caching the im2col reads in L1 (.ca) was
+//     slower;
+//   the epilogue staged through shared memory: 4-byte bf16x2 stores
+//     straight from the fragments were slower.
+//
+// Route 2, Cin % 8 != 0 (the first layer, Cin 6; bound by bytes): the
+// first design of this kernel, not redesigned yet.  One block of 256
+// threads computes a tile of 128 voxels x BN (32, 64 or 128) output
+// channels, looping over K in chunks of 32; the threads build the im2col A
+// tile (128 x 32) in shared memory from scalar loads (every k decodes into
+// (tap, cin), and a neighbour outside the volume or k >= K reads as zero)
+// and the B tile (32 x BN) from w with 16-byte loads.  Two shared-memory
+// stages: the next chunk's loads go into registers before the current
+// chunk's products, one barrier per chunk.  Eight warps (4 along M x 2
+// along N) multiply with nvcuda::wmma 16x16x16 (bf16 in, f32 accumulate);
+// the epilogue stages each 16x16 accumulator through shared memory and
+// stores 8 channels per 16-byte store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +92,9 @@
 using namespace nvcuda;
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// Route 2: Cin % 8 != 0, a wmma kernel with scalar loads.
 
 constexpr int BM = 128;       // output voxels per block
 constexpr int BK = 32;        // K chunk
@@ -62,23 +106,6 @@ struct Geometry {
   long long M;        // B * R^3
   int R, Cin, K, dil;
 };
-
-// 8 consecutive channels (k .. k+7, one tap) of voxel (b, z, y, xx)'s
-// neighbour; zero outside the volume or past K.
-__device__ __forceinline__ uint4 fetch8(const Geometry& g, const uint16_t* xb,
-                                        int z, int y, int xx, int k) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (k >= g.K) return v;
-  const int tap = k / g.Cin;
-  const int cin = k - tap * g.Cin;
-  const int zz = z + (tap / 9 - 1) * g.dil;
-  const int yy = y + ((tap / 3) % 3 - 1) * g.dil;
-  const int xq = xx + (tap % 3 - 1) * g.dil;
-  if (zz < 0 || zz >= g.R || yy < 0 || yy >= g.R || xq < 0 || xq >= g.R)
-    return v;
-  const size_t off = (((size_t)zz * g.R + yy) * g.R + xq) * g.Cin + cin;
-  return *reinterpret_cast<const uint4*>(xb + off);
-}
 
 // One channel (k) of the neighbour, as bf16 bits; zero outside or past K.
 __device__ __forceinline__ uint32_t fetch1(const Geometry& g,
@@ -95,7 +122,7 @@ __device__ __forceinline__ uint32_t fetch1(const Geometry& g,
   return xb[(((size_t)zz * g.R + yy) * g.R + xq) * g.Cin + cin];
 }
 
-template <int BN, bool VEC>
+template <int BN>
 __global__ void __launch_bounds__(THREADS, 2)
     conv3d_kernel(Geometry g, const uint16_t* __restrict__ w,
                   const float* __restrict__ bias, uint16_t* __restrict__ out,
@@ -135,9 +162,6 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int kb = k0 + half * 16;
     if (!row_ok) {
       a_reg[0] = a_reg[1] = make_uint4(0u, 0u, 0u, 0u);
-    } else if (VEC) {
-      a_reg[0] = fetch8(g, xb, z, y, xx, kb);
-      a_reg[1] = fetch8(g, xb, z, y, xx, kb + 8);
     } else {
       uint32_t p[8];
 #pragma unroll
@@ -252,45 +276,390 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <int BN, bool VEC>
+template <int BN>
 void launch(const Geometry& g, const void* w, const void* bias, void* out,
             int Cout, int relu, cudaStream_t stream) {
   const int n_tiles = (Cout + BN - 1) / BN;
   const long long m_tiles = (g.M + BM - 1) / BM;
-  conv3d_kernel<BN, VEC><<<(unsigned)(m_tiles * n_tiles), THREADS, 0,
-                           stream>>>(
+  conv3d_kernel<BN><<<(unsigned)(m_tiles * n_tiles), THREADS, 0, stream>>>(
       g, (const uint16_t*)w, (const float*)bias, (uint16_t*)out, Cout, relu,
       n_tiles);
 }
 
+// ---------------------------------------------------------------------------
+// Route 1: Cin % 8 == 0, wgmma fed by a cp.async ring.
+
+namespace wg {
+
+constexpr int BM = 128;          // output voxels per block: 2 warpgroups x 64
+constexpr int BK = 64;           // K chunk: one 128-byte swizzle row
+constexpr int THREADS = 256;
+constexpr int STAGES = 3;        // ring depth (see the header)
+constexpr int ROW_BYTES = BK * 2;
+constexpr int A_BYTES = BM * ROW_BYTES;
+constexpr int ROWS_PER_PASS = THREADS / 8;  // 8 threads fill one row
+
 template <int BN>
-void launch_bn(const Geometry& g, const void* w, const void* bias, void* out,
-               int Cout, int relu, cudaStream_t stream) {
-  if (g.Cin % 8 == 0)
-    launch<BN, true>(g, w, bias, out, Cout, relu, stream);
-  else
-    launch<BN, false>(g, w, bias, out, Cout, relu, stream);
+__host__ __device__ constexpr int stage_bytes() {
+  return A_BYTES + BN * ROW_BYTES;
 }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; reads src_bytes (16 or 0) and zero-fills the rest
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// make this thread's completed generic-proxy writes to shared memory
+// visible to the async proxy (wgmma's operand reads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma's issue and wait
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (SBO); LBO is unused in this mode
+__device__ __forceinline__ uint64_t make_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// D (64 x N, f32 in registers) += A (64 x 16) * B (16 x N), both from
+// shared memory through descriptors, bf16 in
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv3d_wgmma(const uint16_t* __restrict__ x,
+                 const uint16_t* __restrict__ wt,
+                 const float* __restrict__ bias, uint16_t* __restrict__ out,
+                 long long M, int R, int Cin, int Cout, int dil, int relu,
+                 int n_tiles, int n_chunks) {
+  constexpr int STAGE = stage_bytes<BN>();
+  constexpr int NACC = BN / 2;  // f32 accumulators a thread
+  constexpr int A_ROWS = BM / ROWS_PER_PASS;
+  constexpr int B_ROWS = BN / ROWS_PER_PASS;
+  extern __shared__ unsigned char smem_dyn[];
+  // the ring starts on a 1024-byte boundary (the swizzle's period)
+  const uint32_t raw = smem_addr(smem_dyn);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  int* table = reinterpret_cast<int*>(smem_dyn + (ring - raw) +
+                                      STAGES * STAGE);
+
+  const int tid = threadIdx.x;
+  const int K = 27 * Cin;
+
+  // im2col table, one entry per 8-wide k piece: (offset of the neighbour's
+  // channel cin relative to the voxel's own channel 0) * 32 + tap; tap 31,
+  // which no voxel has, marks the pieces past K
+  for (int e = tid; e < n_chunks * 8; e += THREADS) {
+    const int k = e * 8;
+    int entry = 31;
+    if (k < K) {
+      const int tap = k / Cin;
+      const int cin = k - tap * Cin;
+      const int dz = (tap / 9 - 1) * dil;
+      const int dy = ((tap / 3) % 3 - 1) * dil;
+      const int dx = (tap % 3 - 1) * dil;
+      entry = (((dz * R + dy) * R + dx) * Cin + cin) * 32 + tap;
+    }
+    table[e] = entry;
+  }
+
+  const int n_tile = blockIdx.x % n_tiles;
+  const long long m0 = (long long)(blockIdx.x / n_tiles) * BM;
+  const int n0 = n_tile * BN;
+
+  // this thread fills piece `piece` of rows rbase + 32 i of both tiles
+  const int piece = tid & 7;
+  const int rbase = tid >> 3;
+  const uint32_t swz = (uint32_t)(((piece ^ (rbase & 7)) << 4) +
+                                  rbase * ROW_BYTES);
+
+  const uint16_t* a_src[A_ROWS];
+  uint32_t a_mask[A_ROWS];  // bit tap: the neighbour lies in the volume
+  const long long R3 = (long long)R * R * R;
+#pragma unroll
+  for (int i = 0; i < A_ROWS; ++i) {
+    const long long v = m0 + rbase + i * ROWS_PER_PASS;
+    a_mask[i] = 0u;
+    a_src[i] = x;
+    if (v < M) {
+      const long long item = v / R3;
+      const int q = (int)(v - item * R3);
+      const int z = q / (R * R);
+      const int y = (q / R) % R;
+      const int xx = q % R;
+      // per axis, bit d: the offset (d - 1) * dil stays in the volume
+      const uint32_t zm = (z >= dil) | 2u | ((uint32_t)(z + dil < R) << 2);
+      const uint32_t ym = (y >= dil) | 2u | ((uint32_t)(y + dil < R) << 2);
+      const uint32_t xm = (xx >= dil) | 2u | ((uint32_t)(xx + dil < R) << 2);
+      uint32_t m = 0u;
+#pragma unroll
+      for (int t = 0; t < 27; ++t)
+        m |= ((zm >> (t / 9)) & (ym >> ((t / 3) % 3)) & (xm >> (t % 3)) & 1u)
+             << t;
+      a_mask[i] = m;
+      a_src[i] = x + v * Cin;
+    }
+  }
+  const uint16_t* b_src[B_ROWS];
+  bool b_ok[B_ROWS];
+#pragma unroll
+  for (int j = 0; j < B_ROWS; ++j) {
+    const int n = n0 + rbase + j * ROWS_PER_PASS;
+    b_ok[j] = n < Cout;
+    b_src[j] = wt + (size_t)(b_ok[j] ? n : 0) * K + piece * 8;
+  }
+
+  auto load = [&](int chunk, int stage) {
+    const uint32_t sA = ring + stage * STAGE + swz;
+    const uint32_t sB = sA + A_BYTES;
+    const int e = table[chunk * 8 + piece];
+    const int off = e >> 5;
+    const int tap = e & 31;
+#pragma unroll
+    for (int i = 0; i < A_ROWS; ++i) {
+      const bool ok = (a_mask[i] >> tap) & 1u;
+      cp_async16(sA + i * ROWS_PER_PASS * ROW_BYTES, ok ? a_src[i] + off : x,
+                 ok ? 16 : 0);
+    }
+    const bool k_ok = chunk * BK + piece * 8 < K;
+#pragma unroll
+    for (int j = 0; j < B_ROWS; ++j) {
+      const bool ok = k_ok && b_ok[j];
+      cp_async16(sB + j * ROWS_PER_PASS * ROW_BYTES,
+                 ok ? b_src[j] + chunk * BK : wt, ok ? 16 : 0);
+    }
+  };
+
+  __syncthreads();  // the table
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < n_chunks) load(s, s);
+    cp_async_commit();
+  }
+
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+  const int wgi = tid >> 7;  // warpgroup: rows 64 wgi .. 64 wgi + 63
+
+  for (int c = 0; c < n_chunks; ++c) {
+    // chunk c has landed (this thread's copies), is made visible to the
+    // async proxy, and every thread's copies are in (the barrier).  The
+    // barrier also orders every warpgroup's wait for wgmma c - 2 before
+    // the refill of that stage, which starts right away.
+    cp_async_wait<STAGES - 3>();
+    fence_proxy_async();
+    __syncthreads();
+    const int next = c + STAGES - 2;
+    if (next < n_chunks) load(next, next % STAGES);
+    cp_async_commit();
+    const uint32_t sA = ring + (c % STAGES) * STAGE;
+    const uint32_t a0 = sA + wgi * 64 * ROW_BYTES;
+    const uint32_t b0 = sA + A_BYTES;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Wgmma<BN>::mma(acc, make_desc(a0 + kk * 32), make_desc(b0 + kk * 32));
+    wgmma_commit();
+    wgmma_wait<1>();  // this warpgroup's wgmma c - 1 is done
+    fence_acc(acc);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  cp_async_wait<0>();
+
+  // epilogue: bias, ReLU and the bf16 rounding on the accumulator
+  // fragments (register 4j + 2h + e holds row 16 warp + lane / 4 + 8 h,
+  // column 8 j + 2 (lane % 4) + e of the warpgroup's 64 x BN tile), staged
+  // through the ring so that each thread stores 16 bytes and a warp whole
+  // rows of out
+  constexpr int PITCH = BN * 2 + 16;  // bytes a staged row; the pad spreads
+                                      // a warp's 4-byte writes over 32 banks
+  __syncthreads();  // both warpgroups' wgmma are done with the ring
+  unsigned char* staged = smem_dyn + (ring - raw) + wgi * 64 * PITCH;
+  const int lane = tid & 31;
+  const int r0 = ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int c0 = (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + c0 + 8 * j;
+    if (col >= Cout) continue;  // Cout % 8 == 0: the pair is whole
+    const float b_lo = bias[col];
+    const float b_hi = bias[col + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lo = acc[4 * j + 2 * h] + b_lo;
+      float hi = acc[4 * j + 2 * h + 1] + b_hi;
+      if (relu) {
+        lo = fmaxf(lo, 0.0f);
+        hi = fmaxf(hi, 0.0f);
+      }
+      __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+      *reinterpret_cast<uint32_t*>(staged + (r0 + 8 * h) * PITCH +
+                                   (c0 + 8 * j) * 2) =
+          *reinterpret_cast<uint32_t*>(&p);
+    }
+  }
+  __syncthreads();
+  constexpr int PIECES = BN / 8;  // 16-byte pieces a row
+  const int t = tid & 127;
+  const int col = n0 + (t % PIECES) * 8;
+#pragma unroll
+  for (int r = t / PIECES; r < 64; r += 128 / PIECES) {
+    const long long row = m0 + wgi * 64 + r;
+    if (row < M && col < Cout)
+      *reinterpret_cast<uint4*>(out + row * Cout + col) =
+          *reinterpret_cast<const uint4*>(staged + r * PITCH +
+                                          (t % PIECES) * 16);
+  }
+}
+
+template <int BN>
+int launch(const void* x, const void* wt, const void* bias, void* out,
+           long long M, int R, int Cin, int Cout, int dil, int relu,
+           cudaStream_t stream) {
+  // the table packs a neighbour's offset, a signed 27-bit number, with the
+  // tap into one int
+  if ((dil * ((long long)R * R + R + 1) + 1) * Cin >= (1 << 26))
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = (27 * Cin + BK - 1) / BK;
+  const size_t smem = 1024 + (size_t)STAGES * stage_bytes<BN>() +
+                      (size_t)n_chunks * 8 * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3d_wgmma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (Cout + BN - 1) / BN;
+  const long long m_tiles = (M + BM - 1) / BM;
+  conv3d_wgmma<BN><<<(unsigned)(m_tiles * n_tiles), THREADS, smem, stream>>>(
+      (const uint16_t*)x, (const uint16_t*)wt, (const float*)bias,
+      (uint16_t*)out, M, R, Cin, Cout, dil, relu, n_tiles, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
 
 }  // namespace
 
-extern "C" int conv3d(const void* x, const void* w, const void* bias,
-                      void* out, int B, int R, int Cin, int Cout, int dil,
-                      int relu, void* stream) {
+extern "C" int conv3d(const void* x, const void* w, const void* wt,
+                      const void* bias, void* out, int B, int R, int Cin,
+                      int Cout, int dil, int relu, void* stream) {
+  const long long M = (long long)B * R * R * R;
+  if (M <= 0 || Cout <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (Cin % 8 == 0) {
+    if (Cout >= 128)
+      return wg::launch<128>(x, wt, bias, out, M, R, Cin, Cout, dil, relu, s);
+    return wg::launch<64>(x, wt, bias, out, M, R, Cin, Cout, dil, relu, s);
+  }
   Geometry g;
   g.x = (const uint16_t*)x;
-  g.M = (long long)B * R * R * R;
+  g.M = M;
   g.R = R;
   g.Cin = Cin;
   g.K = 27 * Cin;
   g.dil = dil;
-  if (g.M <= 0 || Cout <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
   if (Cout >= 128)
-    launch_bn<128>(g, w, bias, out, Cout, relu, s);
+    launch<128>(g, w, bias, out, Cout, relu, s);
   else if (Cout > 32)
-    launch_bn<64>(g, w, bias, out, Cout, relu, s);
+    launch<64>(g, w, bias, out, Cout, relu, s);
   else
-    launch_bn<32>(g, w, bias, out, Cout, relu, s);
+    launch<32>(g, w, bias, out, Cout, relu, s);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,13 @@ computes what ``ops/conv3d.py::conv3d_plain`` computes.  The reference
 sends a volume too large for VMEM (the 64^3 first block) to XLA's conv
 instead; that is a TPU limit with the same semantics, so here every layer
 goes through the kernel.  The source file's header states the kernel's
-bound and design.
+bound and design.  Its one C entry takes one of two routes by Cin: for
+Cin a multiple of 8 a ``wgmma`` implicit GEMM fed by a ``cp.async`` ring,
+which reads the weights K-contiguous, so this wrapper passes a transposed
+copy of w, (Cout, 27 * Cin), made anew on every call (at most 3.5 MB at
+the model's widths; it is not cached, and its time counts in the call's);
+otherwise (the first layer's Cin 6) a ``wmma`` kernel with scalar loads
+that reads w as it is.
 
 ``conv3d`` runs the plain version for tensors on the CPU and the kernel
 for tensors on a CUDA device; there is no other route.
@@ -22,7 +28,7 @@ import torch
 from surfacenet_tpu_torch.ops.conv3d import conv3d_plain
 from surfacenet_tpu_torch.ops.cuda import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _kernel_fn():
@@ -80,9 +86,13 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dil: int = 1,
                       device=x.device)
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
+        # the wgmma route's K-contiguous weights (see the module docstring)
+        wt = w.t().contiguous() if cin % 8 == 0 else None
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 B, R, cin, cout, int(dil), int(bool(relu)), stream)
+        err = fn(x.data_ptr(), w.data_ptr(),
+                 wt.data_ptr() if wt is not None else None, b.data_ptr(),
+                 out.data_ptr(), B, R, cin, cout, int(dil), int(bool(relu)),
+                 stream)
     if err != 0:
         raise RuntimeError(f"conv3d kernel launch failed: CUDA error {err}")
     conv3d.launches += 1

@@ -105,18 +105,27 @@ def within_one_bf16_ulp(got, ref):
     return (got - ref).abs() <= 2.0**-7 * ref.abs() + 1e-3 * rms
 
 
+def conv_inputs(device, B, R, cin, cout, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn((B, R, R, R, cin), generator=g, device=device).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * cin, cout), generator=g, device=device)
+         / (27 * cin) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((cout,), generator=g, device=device) * 0.1
+    return x, w, b
+
+
 @pytest.mark.parametrize("cin,cout,dil,R", [
     (6, 32, 1, 16), (32, 128, 1, 8), (128, 128, 2, 8), (128, 256, 2, 8),
     (32, 8, 1, 8), (128, 72, 1, 8),  # narrow and ragged N tiles
+    # the wgmma route (Cin % 8 == 0): K = 216 and 432 end in a ragged
+    # tail of a 64-wide chunk (24 and 48 wide), K = 864 in a half chunk
+    (8, 32, 1, 8), (16, 64, 1, 8), (32, 32, 1, 8),
+    (256, 256, 2, 8),  # dilated taps past every face of an 8^3 volume
+    (8, 8, 1, 8), (16, 72, 2, 8),  # ragged N on short K
 ])
 def test_conv3d_kernel_matches_plain(cuda, cin, cout, dil, R):
-    g = torch.Generator(cuda).manual_seed(cin + cout + dil)
-    B = 3
-    x = torch.randn((B, R, R, R, cin), generator=g, device=cuda).to(
-        torch.bfloat16)
-    w = (torch.randn((27 * cin, cout), generator=g, device=cuda)
-         / (27 * cin) ** 0.5).to(torch.bfloat16)
-    b = torch.randn((cout,), generator=g, device=cuda) * 0.1
+    x, w, b = conv_inputs(cuda, 3, R, cin, cout, cin + cout + dil)
     before = conv3d.launches
     got = conv3d(x, w, b, dil=dil, relu=True)
     ref = conv3d_plain(x, w, b, dil, True)
@@ -140,6 +149,23 @@ def test_conv3d_kernel_ragged_m_and_no_relu(cuda):
     torch.cuda.synchronize()
     assert (ref < 0).any()
     assert within_one_bf16_ulp(got, ref).all()
+
+
+@pytest.mark.parametrize("cin,cout,dil,R,B", [
+    (128, 128, 1, 16, 8), (256, 256, 2, 16, 4), (16, 72, 1, 9, 3),
+])
+def test_conv3d_kernel_repeat_launch_is_bitwise(cuda, cin, cout, dil, R, B):
+    """The same inputs twice give the same bits: a missing proxy fence or
+    barrier in the shared-memory ring would show as a run-to-run change."""
+    x, w, b = conv_inputs(cuda, B, R, cin, cout, 11)
+    before = conv3d.launches
+    first = conv3d(x, w, b, dil=dil, relu=True)
+    second = conv3d(x, w, b, dil=dil, relu=True)
+    torch.cuda.synchronize()
+    assert conv3d.launches == before + 2
+    assert torch.equal(first, second)
+    ref = conv3d_plain(x, w, b, dil, True)
+    assert within_one_bf16_ulp(first, ref).float().mean().item() >= 0.9999
 
 
 @pytest.mark.parametrize("window", [0, 2])
