@@ -28,12 +28,13 @@ the run with a non-zero exit code and no result line):
      conv kernel ran 7 times a forward (a positive multiple of 7, at least
      7 per batch) and the gather and the vote ran too;
   8. the conv kernel against its plain version at each of the forward's
-     seven layer shapes (120 items), with its route (``wgmma`` for Cin a
-     multiple of 8, ``wmma_scalar`` for the first layer's Cin 6), its time
-     and TFLOP/s, its bound and cuDNN's time for the same layer
-     (``F.conv3d``, bf16, channels-last, bias and ReLU: timed only, never
-     called by the port), and the six wgmma layers' sum beside cuDNN's sum
-     for the same six; then the whole fused
+     seven layer shapes (120 items), with its route (``conv3d_route``:
+     ``wgmma`` for Cin a multiple of 8, ``halo_mma`` for the first layer's
+     Cin 6), its time and TFLOP/s, its bound, its share of the bound and
+     cuDNN's time for the same layer (``F.conv3d``, bf16, channels-last,
+     bias and ReLU: timed only, never called by the port) and its ratio to
+     it, and each route's sum beside cuDNN's sum for the same layers;
+     then the whole fused
      forward, kernel route against plain route and against the unfused
      cuDNN forward with the same weights, and the warm fused batch step's
      breakdown;
@@ -97,7 +98,7 @@ from surfacenet_tpu_torch.ops.cuda.affine_pool import (
     affine_pool, ray_max_mask_affine_cuda,
 )
 from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_vote
-from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
+from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d, conv3d_route
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
 from surfacenet_tpu_torch.ops.cvc import build_cvc_views, quantize_int8
 from surfacenet_tpu_torch.ops.ray_pooling import (
@@ -488,10 +489,11 @@ def main() -> int:
                    + M * cout * 2)
         b_ms, b_by = bound(n_bytes, flops, PEAK_BF16_S)
         layer = {"R": R, "cin": cin, "cout": cout, "dil": dil,
-                 "route": "wgmma" if cin % 8 == 0 else "wmma_scalar",
+                 "route": conv3d_route(cin),
                  "ms": k_ms, "tflops": flops / (k_ms * 1e-3) / 1e12,
                  "plain_ms": p_ms, "library_ms": lib_ms,
                  "bound_ms": b_ms, "bound_by": b_by,
+                 "bound_share": b_ms / k_ms, "vs_library": k_ms / lib_ms,
                  "tflop": flops / 1e12, "gb": n_bytes / 1e9,
                  "within_one_bf16_ulp": share, "max_abs_err": err}
         layers.append(layer)
@@ -502,11 +504,14 @@ def main() -> int:
             raise RuntimeError(
                 f"conv3d disagrees with its plain version at R {R}, "
                 f"{cin}->{cout}, dil {dil}: {share:.6f} within one bf16 ulp")
-    wgmma_layers = [layer for layer in layers if layer["route"] == "wgmma"]
-    log(f"conv3d wgmma route, {len(wgmma_layers)} layers: kernel "
-        f"{sum(layer['ms'] for layer in wgmma_layers):.4f} ms, cuDNN "
-        f"{sum(layer['library_ms'] for layer in wgmma_layers):.4f} ms, bound "
-        f"{sum(layer['bound_ms'] for layer in wgmma_layers):.4f} ms")
+    for route in dict.fromkeys(layer["route"] for layer in layers):
+        on = [layer for layer in layers if layer["route"] == route]
+        k_sum = sum(layer["ms"] for layer in on)
+        lib_sum = sum(layer["library_ms"] for layer in on)
+        b_sum = sum(layer["bound_ms"] for layer in on)
+        log(f"conv3d {route} route, {len(on)} layers: kernel {k_sum:.4f} "
+            f"ms, cuDNN {lib_sum:.4f} ms ({k_sum / lib_sum:.3f}x), bound "
+            f"{b_sum:.4f} ms ({b_sum / k_sum:.1%} of it)")
 
     x = torch.randn((net_items, D, D, D, 6), device=dev,
                     generator=gen_d).to(torch.bfloat16)

@@ -6,13 +6,23 @@ computes what ``ops/conv3d.py::conv3d_plain`` computes.  The reference
 sends a volume too large for VMEM (the 64^3 first block) to XLA's conv
 instead; that is a TPU limit with the same semantics, so here every layer
 goes through the kernel.  The source file's header states the kernel's
-bound and design.  Its one C entry takes one of two routes by Cin: for
-Cin a multiple of 8 a ``wgmma`` implicit GEMM fed by a ``cp.async`` ring,
-which reads the weights K-contiguous, so this wrapper passes a transposed
-copy of w, (Cout, 27 * Cin), made anew on every call (at most 3.5 MB at
-the model's widths; it is not cached, and its time counts in the call's);
-otherwise (the first layer's Cin 6) a ``wmma`` kernel with scalar loads
-that reads w as it is.
+bound and design.  Its one C entry takes one of three routes by Cin
+(``conv3d_route`` names them; the choice goes by shape only, and a route
+that fails to launch raises, it never falls back to another):
+
+- Cin a multiple of 8: ``wgmma``, an implicit GEMM fed by a ``cp.async``
+  ring.  It reads the weights K-contiguous, so this wrapper passes a
+  transposed copy of w, (Cout, 27 * Cin), made anew on every call (at most
+  3.5 MB at the model's widths; it is not cached, and its time counts in
+  the call's);
+- Cin below 8 (the first layer's 6): ``halo_mma``, ``wgmma`` straight from
+  an input halo staged once in shared memory, 8 zero-padded channels a
+  voxel (at Cin 6 dilations up to 5: a wider halo does not fit, and the
+  launch fails);
+- any other Cin (the paper width's 300, ``tiny``'s 12): ``wmma_scalar``,
+  the first design, a ``wmma`` kernel with scalar loads.
+
+The last two read w as it is.
 
 ``conv3d`` runs the plain version for tensors on the CPU and the kernel
 for tensors on a CUDA device; there is no other route.
@@ -29,6 +39,15 @@ from surfacenet_tpu_torch.ops.conv3d import conv3d_plain
 from surfacenet_tpu_torch.ops.cuda import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def conv3d_route(cin: int) -> str:
+    """The route the C entry ``conv3d`` takes for ``cin`` input channels."""
+    if cin % 8 == 0:
+        return "wgmma"
+    if cin < 8:
+        return "halo_mma"
+    return "wmma_scalar"
 
 
 def _kernel_fn():
@@ -87,7 +106,7 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dil: int = 1,
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
         # the wgmma route's K-contiguous weights (see the module docstring)
-        wt = w.t().contiguous() if cin % 8 == 0 else None
+        wt = w.t().contiguous() if conv3d_route(cin) == "wgmma" else None
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(),
                  wt.data_ptr() if wt is not None else None, b.data_ptr(),

@@ -30,7 +30,7 @@ from surfacenet_tpu_torch.models.surfacenet import (
     SurfaceNet, fold_bn, fused_infer_apply, fused_params, make_predictor,
 )
 from surfacenet_tpu_torch.ops.conv3d import conv3d_plain, pack_conv_weight
-from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
+from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d, conv3d_route
 
 torch.set_num_threads(2)
 
@@ -43,7 +43,7 @@ def within_one_bf16_ulp(got, ref):
 
 
 @pytest.mark.parametrize("dil", [1, 2])
-@pytest.mark.parametrize("cin,cout", [(6, 8), (8, 16)])
+@pytest.mark.parametrize("cin,cout", [(6, 8), (8, 16), (3, 8), (7, 16)])
 def test_conv3d_plain_matches_pallas_interpret(dil, cin, cout):
     rng = np.random.default_rng(dil * 100 + cin)
     x = rng.standard_normal((2, D, D, D, cin)).astype(np.float32)
@@ -61,6 +61,14 @@ def test_conv3d_plain_matches_pallas_interpret(dil, cin, cout):
     assert got.is_contiguous()
     assert within_one_bf16_ulp(got.float().numpy(), ref).all()
     assert (ref > 0).any() and (ref == 0).any()  # ReLU did cut
+
+
+@pytest.mark.parametrize("cin,route", [
+    (6, "halo_mma"), (1, "halo_mma"), (7, "halo_mma"), (8, "wgmma"),
+    (128, "wgmma"), (12, "wmma_scalar"), (300, "wmma_scalar"),
+])
+def test_conv3d_route_by_cin(cin, route):
+    assert conv3d_route(cin) == route
 
 
 def test_pack_conv_weight_is_the_dhwio_reshape():

@@ -115,25 +115,41 @@ def conv_inputs(device, B, R, cin, cout, seed):
     return x, w, b
 
 
-@pytest.mark.parametrize("cin,cout,dil,R", [
-    (6, 32, 1, 16), (32, 128, 1, 8), (128, 128, 2, 8), (128, 256, 2, 8),
-    (32, 8, 1, 8), (128, 72, 1, 8),  # narrow and ragged N tiles
+@pytest.mark.parametrize("cin,cout,dil,R,relu", [
+    (6, 32, 1, 16, True), (32, 128, 1, 8, True), (128, 128, 2, 8, True),
+    (128, 256, 2, 8, True),
+    (32, 8, 1, 8, True), (128, 72, 1, 8, True),  # narrow and ragged N tiles
     # the wgmma route (Cin % 8 == 0): K = 216 and 432 end in a ragged
     # tail of a 64-wide chunk (24 and 48 wide), K = 864 in a half chunk
-    (8, 32, 1, 8), (16, 64, 1, 8), (32, 32, 1, 8),
-    (256, 256, 2, 8),  # dilated taps past every face of an 8^3 volume
-    (8, 8, 1, 8), (16, 72, 2, 8),  # ragged N on short K
+    (8, 32, 1, 8, True), (16, 64, 1, 8, True), (32, 32, 1, 8, True),
+    # dilated taps past every face of an 8^3 volume
+    (256, 256, 2, 8, True),
+    (8, 8, 1, 8, True), (16, 72, 2, 8, True),  # ragged N on short K
+    # the halo route (Cin < 8): every channel count's word alignment (odd
+    # Cin straddles voxels), wider halos, volumes no tile divides, one and
+    # several weight chunks, and no ReLU
+    (1, 32, 1, 16, True), (3, 32, 1, 16, True), (7, 32, 1, 16, True),
+    (6, 32, 2, 16, True), (6, 32, 3, 16, True),
+    (6, 32, 1, 5, True), (6, 32, 1, 13, True),
+    (6, 8, 1, 16, True), (6, 72, 1, 16, True), (6, 128, 1, 16, True),
+    (6, 32, 1, 16, False),
+    # the scalar route (Cin > 8, not a multiple of 8): tiny's and the
+    # paper width's
+    (12, 16, 1, 8, True), (300, 16, 2, 8, True),
 ])
-def test_conv3d_kernel_matches_plain(cuda, cin, cout, dil, R):
+def test_conv3d_kernel_matches_plain(cuda, cin, cout, dil, R, relu):
     x, w, b = conv_inputs(cuda, 3, R, cin, cout, cin + cout + dil)
     before = conv3d.launches
-    got = conv3d(x, w, b, dil=dil, relu=True)
-    ref = conv3d_plain(x, w, b, dil, True)
+    got = conv3d(x, w, b, dil=dil, relu=relu)
+    ref = conv3d_plain(x, w, b, dil, relu)
     torch.cuda.synchronize()
     assert conv3d.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape
     assert within_one_bf16_ulp(got, ref).float().mean().item() >= 0.9999
-    assert (ref > 0).any() and (ref == 0).any()
+    if relu:
+        assert (ref > 0).any() and (ref == 0).any()
+    else:
+        assert (ref < 0).any()
 
 
 def test_conv3d_kernel_ragged_m_and_no_relu(cuda):
@@ -151,12 +167,24 @@ def test_conv3d_kernel_ragged_m_and_no_relu(cuda):
     assert within_one_bf16_ulp(got, ref).all()
 
 
+def test_conv3d_halo_route_refuses_a_halo_too_wide(cuda):
+    """At dil 8 even one row of the halo route's tile does not fit in shared
+    memory: the launch fails and the wrapper raises; no other route runs."""
+    x, w, b = conv_inputs(cuda, 1, 16, 6, 32, 5)
+    before = conv3d.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        conv3d(x, w, b, dil=8)
+    assert conv3d.launches == before
+
+
 @pytest.mark.parametrize("cin,cout,dil,R,B", [
     (128, 128, 1, 16, 8), (256, 256, 2, 16, 4), (16, 72, 1, 9, 3),
+    (6, 32, 1, 64, 2),  # the halo route at the first layer's shape
 ])
 def test_conv3d_kernel_repeat_launch_is_bitwise(cuda, cin, cout, dil, R, B):
     """The same inputs twice give the same bits: a missing proxy fence or
-    barrier in the shared-memory ring would show as a run-to-run change."""
+    barrier in a shared-memory ring or halo would show as a run-to-run
+    change."""
     x, w, b = conv_inputs(cuda, B, R, cin, cout, 11)
     before = conv3d.launches
     first = conv3d(x, w, b, dil=dil, relu=True)
