@@ -16,9 +16,10 @@ the run with a non-zero exit code and no result line):
   5. the same sweep with the photoconsistency predictor: points must come
      out, and their distance to the analytic sphere is reported;
   6. the gather and the vote against their plain PyTorch versions at the
-     first batch's own inputs, with CUDA-event times, the card's bound (a
-     gather's bytes: its outputs plus the distinct pixels its valid
-     voxels' taps read) and,
+     first batch's own inputs (the gather on the sweep's RGBx image copy,
+     ``gather_images``), with CUDA-event times, the card's bound (a
+     gather's bytes: its outputs plus the three channels of the distinct
+     pixels its valid voxels' taps read) and,
      for the gather, ``F.grid_sample``'s time on the same projected points;
      then the device time of one warm batch step split into model, kernels
      and the rest;
@@ -63,7 +64,19 @@ the run with a non-zero exit code and no result line):
       and the tori (affine vote), on the card and with ``--device cpu``:
       the merged voxel sets agree on >= 0.99 of their union, accuracy and
       completeness within 2%;
-  14. the result line.
+  14. main path at the paper width, fused inference: ``reconstruct_scan``
+      with the ``dtu9_paper`` preset (``block_channels`` (32, 80, 160,
+      300), 3 convs a block) and ``model.fused_inference`` on, a SurfaceNet
+      of seeded random weights and seeded non-identity BatchNorm
+      statistics; ``fused_params`` pads block 3's 300 channels to 304;
+      fails unless the conv kernel ran 12 times a forward (a positive
+      multiple of 12, at least 12 per batch) with no launch on the
+      ``wmma_scalar`` route; then each of the 12 convs against its plain
+      version at its padded shape (120 items) with its route, time, bound
+      and cuDNN's time at the unpadded width, the forward against its
+      plain route (within 1e-2) and the unfused cuDNN forward (within
+      0.03) with the same weights, and the warm batch step;
+  15. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  Writes only to a temporary directory and to the
@@ -100,14 +113,14 @@ from surfacenet_tpu_torch.ops.cuda.affine_pool import (
 from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_vote
 from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d, conv3d_route
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
-from surfacenet_tpu_torch.ops.cvc import build_cvc_views, quantize_int8
+from surfacenet_tpu_torch.ops.cvc import build_cvc_views
 from surfacenet_tpu_torch.ops.ray_pooling import (
     item_params, ray_max_mask_affine_batch, ray_max_mask_affine_plain,
     ray_vote_affine_plain, vote_params,
 )
 from surfacenet_tpu_torch.pipeline.sweep import (
-    cube_batch_step, photoconsistency_predictor, plan_sweep, pool_views_for,
-    resolve_pool_window,
+    cube_batch_step, gather_images, photoconsistency_predictor, plan_sweep,
+    pool_views_for, resolve_pool_window,
 )
 from surfacenet_tpu_torch.utils.metrics import voxel_set_agreement
 from surfacenet_tpu_torch.utils.ply import read_ply, write_ply
@@ -180,6 +193,7 @@ def reset_counts():
     for kernel in (warp_gather, affine_vote, conv3d, affine_pool):
         kernel.launches = 0
     warp_gather.entry_launches = dict.fromkeys(warp_gather.entry_launches, 0)
+    conv3d.route_launches = dict.fromkeys(conv3d.route_launches, 0)
 
 
 def within_one_bf16_ulp(got, ref):
@@ -216,6 +230,87 @@ def conv_layers(mcfg, D):
         if do_pool:
             R //= 2
     return layers
+
+
+def conv_layer(R, cin, cout, dil, items, gen, cin_p=None, cout_p=None):
+    """The conv kernel at one layer shape on random inputs from ``gen``:
+    held against its plain version (fails unless >= 0.9999 of the outputs
+    lie within one bf16 ulp), timed beside it and beside cuDNN's bf16 conv
+    in channels-last layout with bias and ReLU (timed only, never called by
+    the port) at the unpadded width, with the bound of the unpadded layer.
+    ``cin_p``/``cout_p`` are the padded widths the kernel runs at
+    (``fused_params``): the extra channels of input, weights and bias are
+    zero."""
+    cin_p, cout_p = cin_p or cin, cout_p or cout
+    dev = gen.device
+    xl = torch.randn((items, R, R, R, cin_p), device=dev, generator=gen)
+    xl[..., cin:] = 0  # a padded channel of the previous layer is 0
+    xl = xl.to(torch.bfloat16)
+    wl = torch.zeros((27, cin_p, cout_p), device=dev)
+    wl[:, :cin, :cout] = (torch.randn((27, cin, cout), device=dev,
+                                      generator=gen) / (27 * cin) ** 0.5)
+    wl = wl.reshape(27 * cin_p, cout_p).to(torch.bfloat16)
+    bl = torch.zeros((cout_p,), device=dev)
+    bl[:cout] = torch.randn((cout,), device=dev, generator=gen) * 0.1
+    got = conv3d(xl, wl, bl, dil=dil)
+    ref = conv3d_plain(xl, wl, bl, dil)
+    torch.cuda.synchronize()
+    share, err = within_one_bf16_ulp(got, ref)
+    del got, ref
+    k_ms = cuda_ms(lambda: conv3d(xl, wl, bl, dil=dil), iters=3, warmup=1)
+    p_ms = cuda_ms(lambda: conv3d_plain(xl, wl, bl, dil), iters=1, warmup=0)
+    xc = xl[..., :cin].permute(0, 4, 1, 2, 3).contiguous(
+        memory_format=torch.channels_last_3d)
+    wc = wl.reshape(3, 3, 3, cin_p, cout_p)[:, :, :, :cin, :cout].permute(
+        4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+    bc = bl[:cout].to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: F.conv3d(xc, wc, bc, padding=dil,
+                                      dilation=dil).relu_(),
+                     iters=3, warmup=1)
+    M = items * R**3
+    flops = 2 * M * cout * 27 * cin
+    n_bytes = M * cin * 2 + 27 * cin * cout * 2 + cout * 4 + M * cout * 2
+    b_ms, b_by = bound(n_bytes, flops, PEAK_BF16_S)
+    del xl, wl, bl, xc, wc, bc
+    torch.cuda.empty_cache()
+    layer = {"R": R, "cin": cin, "cout": cout, "cin_padded": cin_p,
+             "cout_padded": cout_p, "dil": dil, "route": conv3d_route(cin_p),
+             "ms": k_ms, "tflops": flops / (k_ms * 1e-3) / 1e12,
+             "plain_ms": p_ms, "library_ms": lib_ms,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "bound_share": b_ms / k_ms, "vs_library": k_ms / lib_ms,
+             "tflop": flops / 1e12, "gb": n_bytes / 1e9,
+             "within_one_bf16_ulp": share, "max_abs_err": err}
+    if share < 0.9999:
+        raise RuntimeError(
+            f"conv3d disagrees with its plain version at R {R}, "
+            f"{cin_p}->{cout_p}, dil {dil}: {share:.6f} within one bf16 ulp")
+    return layer
+
+
+def forward_diffs(predictor, cfg_model, params, model, x):
+    """The fused forward's probabilities against its plain route and
+    against the unfused cuDNN forward with the same weights (which moves
+    ``model`` to the card in bf16): (max |diff| to each, min, max, the
+    unfused predictor).  Fails on non-finite probabilities or differences
+    above 1e-2 and 0.03."""
+    with torch.inference_mode():
+        p_kernel = predictor(x, None)
+        p_plain = fused_infer_apply(cfg_model, params, x, conv=conv3d_plain)
+        torch.cuda.synchronize()
+        d_plain = (p_kernel - p_plain).abs().max().item()
+        del p_plain
+        unfused = make_predictor(
+            model, dataclasses.replace(cfg_model, fused_inference=False),
+            x.device)
+        d_unfused = (p_kernel - unfused(x, None)).abs().max().item()
+    if not torch.isfinite(p_kernel).all():
+        raise RuntimeError("non-finite probabilities from the fused forward")
+    if d_plain > 1e-2 or d_unfused > 0.03:
+        raise RuntimeError(f"the fused forward disagrees: {d_plain:.3e} from "
+                           f"its plain route, {d_unfused:.3e} from unfused")
+    return (d_plain, d_unfused, p_kernel.min().item(), p_kernel.max().item(),
+            unfused)
 
 
 def main() -> int:
@@ -306,8 +401,8 @@ def main() -> int:
     B = cfg.sweep.cube_batch
     batch = plan.batch(slice(0, B), dev)
     origins, uniq = batch[0], batch[3]
-    images_g = torch.as_tensor(scene.images, device=dev).to(
-        torch.bfloat16).contiguous()
+    images_t = torch.as_tensor(scene.images, device=dev)
+    images_g = gather_images(images_t, torch.bfloat16)  # the sweep's RGBx
     Ps_d = torch.as_tensor(stats.Ps, dtype=torch.float32, device=dev)
     Ku = uniq.shape[1]
     views = torch.where(uniq >= 0, uniq, uniq[:, :1].clamp(min=0))
@@ -347,11 +442,12 @@ def main() -> int:
                         nv / den / (H - 1) * 2 - 1], dim=-1)
     grid = grid.reshape(n_items, -1, 1, 2)
     del nu, nv, den
-    imgs_items = images_g.float().permute(0, 3, 1, 2)[views.long()]
+    imgs_items = images_g[..., :3].float().permute(0, 3, 1, 2)[views.long()]
     g_lib = cuda_ms(lambda: F.grid_sample(
         imgs_items, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), iters=5, warmup=1)
     del imgs_items, grid
+    # the input the function needs: three channels of the pixels it reads
     g_bytes = (n_pixels * 3 * images_g.element_size() + Ps_d.numel() * 4
                + views.numel() * 4 + vorig.numel() * 4
                + colors_k.numel() * 4 + valid_k.numel())
@@ -437,6 +533,7 @@ def main() -> int:
     launches_f = {"conv3d": conv3d.launches,
                   "warp_gather": warp_gather.launches,
                   "affine_vote": affine_vote.launches}
+    routes_f = dict(conv3d.route_launches)
     n_layers = len(conv_layers(cfg.model, D))
     log(f"stages {json.dumps(timings_f)} total {wall:.3f} s")
     log(f"cubes {stats_f.n_cubes_after_prefilter}/{stats_f.n_cubes_total} "
@@ -444,7 +541,8 @@ def main() -> int:
         f"{stats_f.n_cubes_after_prefilter / stats_f.sweep_s:.2f} cubes/s "
         f"(sweep stage), non-empty {stats_f.n_cubes_nonempty}, points "
         f"{n_pts_f}")
-    log(f"kernel launches in the fused main path: {json.dumps(launches_f)}")
+    log(f"kernel launches in the fused main path: {json.dumps(launches_f)}, "
+        f"conv by route {json.dumps(routes_f)}")
     if (launches_f["conv3d"] <= 0 or launches_f["conv3d"] % n_layers
             or launches_f["conv3d"] < n_layers * stats_f.n_batches):
         raise RuntimeError(
@@ -461,49 +559,8 @@ def main() -> int:
     gen_d = torch.Generator(dev).manual_seed(2)
     layers = []
     for R, cin, cout, dil in conv_layers(cfg.model, D):
-        xl = torch.randn((net_items, R, R, R, cin), device=dev,
-                         generator=gen_d).to(torch.bfloat16)
-        wl = (torch.randn((27 * cin, cout), device=dev, generator=gen_d)
-              / (27 * cin) ** 0.5).to(torch.bfloat16)
-        bl = torch.randn((cout,), device=dev, generator=gen_d) * 0.1
-        got = conv3d(xl, wl, bl, dil=dil)
-        ref = conv3d_plain(xl, wl, bl, dil)
-        torch.cuda.synchronize()
-        share, err = within_one_bf16_ulp(got, ref)
-        del got, ref
-        k_ms = cuda_ms(lambda: conv3d(xl, wl, bl, dil=dil), iters=3,
-                       warmup=1)
-        p_ms = cuda_ms(lambda: conv3d_plain(xl, wl, bl, dil), iters=1,
-                       warmup=0)
-        # library yardstick: cuDNN's bf16 conv in channels-last layout
-        xc = xl.permute(0, 4, 1, 2, 3)
-        wc = wl.reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous(
-            memory_format=torch.channels_last_3d)
-        bc = bl.to(torch.bfloat16)
-        lib_ms = cuda_ms(lambda: F.conv3d(xc, wc, bc, padding=dil,
-                                          dilation=dil).relu_(),
-                         iters=3, warmup=1)
-        M = net_items * R**3
-        flops = 2 * M * cout * 27 * cin
-        n_bytes = (xl.numel() * 2 + wl.numel() * 2 + bl.numel() * 4
-                   + M * cout * 2)
-        b_ms, b_by = bound(n_bytes, flops, PEAK_BF16_S)
-        layer = {"R": R, "cin": cin, "cout": cout, "dil": dil,
-                 "route": conv3d_route(cin),
-                 "ms": k_ms, "tflops": flops / (k_ms * 1e-3) / 1e12,
-                 "plain_ms": p_ms, "library_ms": lib_ms,
-                 "bound_ms": b_ms, "bound_by": b_by,
-                 "bound_share": b_ms / k_ms, "vs_library": k_ms / lib_ms,
-                 "tflop": flops / 1e12, "gb": n_bytes / 1e9,
-                 "within_one_bf16_ulp": share, "max_abs_err": err}
-        layers.append(layer)
-        log(f"conv3d layer {json.dumps(layer)}")
-        del xl, wl, bl, xc, wc, bc
-        torch.cuda.empty_cache()
-        if share < 0.9999:
-            raise RuntimeError(
-                f"conv3d disagrees with its plain version at R {R}, "
-                f"{cin}->{cout}, dil {dil}: {share:.6f} within one bf16 ulp")
+        layers.append(conv_layer(R, cin, cout, dil, net_items, gen_d))
+        log(f"conv3d layer {json.dumps(layers[-1])}")
     for route in dict.fromkeys(layer["route"] for layer in layers):
         on = [layer for layer in layers if layer["route"] == route]
         k_sum = sum(layer["ms"] for layer in on)
@@ -516,26 +573,11 @@ def main() -> int:
     x = torch.randn((net_items, D, D, D, 6), device=dev,
                     generator=gen_d).to(torch.bfloat16)
     params_f = fused_params(model_f.state_dict(), cfg_f.model, dev)
-    with torch.inference_mode():
-        p_kernel = predictor_f(x, None)
-        p_plain = fused_infer_apply(cfg_f.model, params_f, x,
-                                    conv=conv3d_plain)
-        torch.cuda.synchronize()
-        d_plain = (p_kernel - p_plain).abs().max().item()
-        del p_plain
-        # the unfused cuDNN forward with the same weights (moves model_f
-        # to the card in bf16)
-        unfused = make_predictor(model_f, cfg.model, dev)
-        d_unfused = (p_kernel - unfused(x, None)).abs().max().item()
+    d_plain, d_unfused, p_min, p_max, _ = forward_diffs(
+        predictor_f, cfg_f.model, params_f, model_f, x)
     log(f"fused forward, {net_items} items: max |prob diff| kernel vs plain "
         f"route {d_plain:.3e}, vs unfused cuDNN forward {d_unfused:.3e}; "
-        f"probabilities in [{p_kernel.min().item():.4f}, "
-        f"{p_kernel.max().item():.4f}]")
-    if not torch.isfinite(p_kernel).all():
-        raise RuntimeError("non-finite probabilities from the fused forward")
-    if d_plain > 1e-2 or d_unfused > 0.03:
-        raise RuntimeError("the fused forward disagrees")
-    del p_kernel, unfused
+        f"probabilities in [{p_min:.4f}, {p_max:.4f}]")
 
     batch_f = plan_sweep(stats_f.Ps, scene.bbox_min, scene.bbox_max,
                          scene.images.shape[1:3], cfg, dev).batch(
@@ -665,7 +707,7 @@ def main() -> int:
         raise RuntimeError("the int8 main path wrote no points")
 
     phase(11, "int8 gather entry against its plain version, phase-6 items")
-    images_q = quantize_int8(torch.as_tensor(scene.images, device=dev))
+    images_q = gather_images(images_t, torch.int8)
     colors_q, valid_q = warp_gather(images_q, Ps_d, views, vorig, D=D, s=s)
     colors_p, valid_p = build_cvc_views(images_q, Ps_d, views, vorig, D, s)
     torch.cuda.synchronize()
@@ -673,7 +715,7 @@ def main() -> int:
                                                               valid_p)
     q_err = (colors_q - colors_p).abs().max().item()
     del colors_p, valid_p
-    images_f = torch.as_tensor(scene.images, device=dev).contiguous()
+    images_f = gather_images(images_t, torch.float32)
     colors_f, valid_f = warp_gather(images_f, Ps_d, views, vorig, D=D, s=s)
     f32_diff = (colors_q - colors_f).abs()[valid_q & valid_f].max().item()
     n_valid_q = int(valid_q.sum().item())
@@ -706,7 +748,7 @@ def main() -> int:
     log(f"warp_gather int8 {q_ms:.4f} ms (turns {turns[0]:.4f} / "
         f"{turns[3]:.4f}), bf16 {qb_ms:.4f} ms (turns {turns[1]:.4f} / "
         f"{turns[2]:.4f}), bound {q_bound:.4f} ms by {q_by}, plain "
-        f"{q_plain:.2f} ms; int8 images {images_q.numel() / 1e6:.1f} MB")
+        f"{q_plain:.2f} ms; int8 RGBx images {images_q.numel() / 1e6:.1f} MB")
     del images_q
     torch.cuda.empty_cache()
 
@@ -750,6 +792,101 @@ def main() -> int:
             raise RuntimeError(f"selftest {name} ran other kernels than "
                                f"its path: {counts}")
 
+    phase(14, "main path at the paper width, fused inference: "
+          "reconstruct_scan, dtu9_paper, seeded net with seeded BatchNorm "
+          "statistics")
+    cfg_p = baseline_config("dtu9_paper")
+    cfg_p = cfg_p.replace(model=dataclasses.replace(cfg_p.model,
+                                                    fused_inference=True))
+    gen = torch.Generator().manual_seed(3)
+    model_p = seed_bn_stats(init_surfacenet(cfg_p.model, gen), gen)
+    predictor_p = make_predictor(model_p, cfg_p.model, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    n_pts_p, stats_p, timings_p = reconstruct_scan(
+        scan, cfg_p, predictor_p, f"{tmp.name}/paper.ply", dev
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_p = {"conv3d": conv3d.launches,
+                  "warp_gather": warp_gather.launches,
+                  "affine_vote": affine_vote.launches}
+    routes_p = dict(conv3d.route_launches)
+    layers_p = conv_layers(cfg_p.model, D)
+    log(f"stages {json.dumps(timings_p)} total {wall:.3f} s")
+    log(f"cubes {stats_p.n_cubes_after_prefilter}/{stats_p.n_cubes_total} "
+        f"in {stats_p.n_batches} batches, "
+        f"{stats_p.n_cubes_after_prefilter / stats_p.sweep_s:.2f} cubes/s "
+        f"(sweep stage), non-empty {stats_p.n_cubes_nonempty}, points "
+        f"{n_pts_p}")
+    log(f"kernel launches in the paper-width main path: "
+        f"{json.dumps(launches_p)}, conv by route {json.dumps(routes_p)}")
+    if (launches_p["conv3d"] <= 0 or launches_p["conv3d"] % len(layers_p)
+            or launches_p["conv3d"] < len(layers_p) * stats_p.n_batches
+            or routes_p["wmma_scalar"]):
+        raise RuntimeError(
+            f"the paper-width path launched the conv kernel "
+            f"{launches_p['conv3d']} times ({routes_p}) for "
+            f"{stats_p.n_batches} batches of {len(layers_p)} convs, or on "
+            f"the scalar route")
+    for name in ("warp_gather", "affine_vote"):
+        if launches_p[name] <= 0:
+            raise RuntimeError(f"the paper-width path did not launch {name}")
+
+    # each conv at its padded shape (fused_params), beside cuDNN at the
+    # unpadded width
+    params_p = fused_params(model_p.state_dict(), cfg_p.model, dev)
+    packed = [conv for blk in params_p["blocks"] for conv in blk["convs"]]
+    layers_pw = []
+    for (R, cin, cout, dil), (w_p, _, _) in zip(layers_p, packed):
+        layers_pw.append(conv_layer(R, cin, cout, dil, net_items, gen_d,
+                                    w_p.shape[0] // 27, w_p.shape[1]))
+        log(f"conv3d paper-width layer {json.dumps(layers_pw[-1])}")
+        if layers_pw[-1]["route"] == "wmma_scalar":
+            raise RuntimeError(f"a paper-width conv took the scalar route: "
+                               f"{layers_pw[-1]}")
+    conv_ms_p = sum(layer["ms"] for layer in layers_pw)
+    conv_lib_p = sum(layer["library_ms"] for layer in layers_pw)
+    conv_bound_p = sum(layer["bound_ms"] for layer in layers_pw)
+    log(f"conv3d paper width, {len(layers_pw)} layers: kernel {conv_ms_p:.4f} "
+        f"ms, cuDNN {conv_lib_p:.4f} ms ({conv_ms_p / conv_lib_p:.3f}x), "
+        f"bound {conv_bound_p:.4f} ms ({conv_bound_p / conv_ms_p:.1%} of it)")
+
+    x = torch.randn((net_items, D, D, D, 6), device=dev,
+                    generator=gen_d).to(torch.bfloat16)
+    d_plain_p, d_unfused_p, p_min, p_max, unfused = forward_diffs(
+        predictor_p, cfg_p.model, params_p, model_p, x)
+    with torch.inference_mode():
+        unfused_ms = cuda_ms(lambda: unfused(x, None), iters=3, warmup=1)
+    del unfused
+    log(f"paper-width fused forward, {net_items} items: max |prob diff| "
+        f"kernel vs plain route {d_plain_p:.3e}, vs unfused cuDNN forward "
+        f"{d_unfused_p:.3e}; probabilities in [{p_min:.4f}, {p_max:.4f}]")
+    batch_p = plan_sweep(stats_p.Ps, scene.bbox_min, scene.bbox_max,
+                         scene.images.shape[1:3], cfg_p, dev).batch(
+        slice(0, B), dev)
+    Ps_p = torch.as_tensor(stats_p.Ps, dtype=torch.float32, device=dev)
+    step_kw_p = dict(step_kw, predict=predictor_p)
+    step_ms_p = cuda_ms(lambda: cube_batch_step(
+        images_g, Ps_p, *batch_p, compact_output=True, **step_kw_p),
+        iters=3, warmup=1)
+    model_ms_p = cuda_ms(lambda: predictor_p(x, None), iters=3, warmup=1)
+    flops_p = net_items * forward_flops(cfg_p.model, D)
+    paper = {
+        "cubes": B, "step_ms": step_ms_p, "model_ms": model_ms_p,
+        "unfused_model_ms": unfused_ms, "conv_kernel_ms": conv_ms_p,
+        "conv_library_ms": conv_lib_p, "conv_bound_ms": conv_bound_p,
+        "model_tflop": flops_p / 1e12,
+        "model_mfu_bf16": flops_p / (model_ms_p * 1e-3) / PEAK_BF16_S,
+        "cubes_per_s": B / step_ms_p * 1e3,
+        "max_abs_diff_plain": d_plain_p, "max_abs_diff_unfused": d_unfused_p,
+        "launches": launches_p["conv3d"], "route_launches": routes_p,
+    }
+    log(f"paper-width fused batch step breakdown {json.dumps(paper)}")
+    paper["layers"] = layers_pw
+    del x
+    torch.cuda.empty_cache()
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -781,7 +918,8 @@ def main() -> int:
             "bound_ms": sum(layer["bound_ms"] for layer in layers),
             "bound_by": "operations",
             "library_ms": breakdown_f["conv_library_ms"],
-            "items": net_items, "layers": layers,
+            "items": net_items, "route_launches": routes_f, "layers": layers,
+            "paper_width": paper,
         },
         {
             "name": "affine_pool", "route": "cuda",
@@ -814,7 +952,7 @@ def main() -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(14, "result")
+    phase(15, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

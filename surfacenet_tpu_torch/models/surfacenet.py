@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from surfacenet_tpu_torch.config import ModelConfig
 from surfacenet_tpu_torch.ops.conv3d import pack_conv_weight
-from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
+from surfacenet_tpu_torch.ops.cuda.conv3d import CHANNEL_MULTIPLE, conv3d
 
 # flax.linen.BatchNorm's default epsilon, which the reference uses
 BN_EPS = 1e-5
@@ -209,6 +209,15 @@ def fused_params(state_dict, cfg: ModelConfig, device) -> dict:
     conv kernel's (27 * Cin, Cout) layout in bf16 with a float32 bias, and
     the side and head 1^3 weights and biases are cast to ``cfg.dtype``:
     the values the reference computes on every call, computed once.
+
+    Every conv's Cout is padded with zero channels to a multiple of
+    ``CHANNEL_MULTIPLE`` (8; zero kernel columns, zero bias), which every
+    route of the conv kernel needs, and the next conv's Cin and the block's side weight take zero
+    rows to match (the paper width's 300 becomes 304, ``tiny``'s 12
+    becomes 16; the first conv keeps ``in_channels``).  A padded channel is
+    0 * w + 0 = 0, stays 0 through ReLU and max-pool and adds nothing to
+    the next conv or the side matmul, so the function is unchanged, and
+    widths already aligned come out as they were.
     """
     sd = {k: v.detach().to("cpu", torch.float32)
           for k, v in state_dict.items()}
@@ -225,16 +234,25 @@ def fused_params(state_dict, cfg: ModelConfig, device) -> dict:
         return t.to(dtype).contiguous().to(device)
 
     blocks = []
+    cin = cfg.in_channels  # the padded width of the running activation
     for b, (n_convs, dil) in enumerate(zip(cfg.convs_per_block,
                                            cfg.dilations)):
         convs = []
         for i in range(n_convs):
             w, bias = conv_params(f"blocks.{b}.convs.{i}.",
                                   f"blocks.{b}.bns.{i}.")
+            cout = w.shape[0]
+            pad = -cout % CHANNEL_MULTIPLE
+            # (out, in, 3, 3, 3): zero input rows up to cin, zero outputs
+            w = F.pad(w, (0, 0, 0, 0, 0, 0, 0, cin - w.shape[1], 0, pad))
             convs.append((put(pack_conv_weight(w), torch.bfloat16),
-                          put(bias, torch.float32), dil))
+                          put(F.pad(bias, (0, pad)), torch.float32), dil))
+            cin = cout + pad
         sw, sb = conv_params(f"sides.{b}.conv.", f"sides.{b}.bn.")
-        blocks.append({"convs": convs, "side_w": put(sw[:, :, 0, 0, 0].t(), dt),
+        sw = sw[:, :, 0, 0, 0].t()  # (ch, side)
+        blocks.append({"convs": convs,
+                       "side_w": put(F.pad(sw, (0, 0, 0, cin - sw.shape[0])),
+                                     dt),
                        "side_b": put(sb, dt)})
     return {"blocks": blocks,
             "head_w": put(sd["head.weight"][:, :, 0, 0, 0].t(), dt),

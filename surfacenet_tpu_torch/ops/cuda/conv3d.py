@@ -19,14 +19,17 @@ that fails to launch raises, it never falls back to another):
   an input halo staged once in shared memory, 8 zero-padded channels a
   voxel (at Cin 6 dilations up to 5: a wider halo does not fit, and the
   launch fails);
-- any other Cin (the paper width's 300, ``tiny``'s 12): ``wmma_scalar``,
-  the first design, a ``wmma`` kernel with scalar loads.
+- any other Cin: ``wmma_scalar``, the first design, a ``wmma`` kernel
+  with scalar loads.  No model layer takes it: ``fused_params`` pads
+  every conv's channels to a multiple of 8 (the paper width's 300 to 304,
+  ``tiny``'s 12 to 16).
 
 The last two read w as it is.
 
 ``conv3d`` runs the plain version for tensors on the CPU and the kernel
 for tensors on a CUDA device; there is no other route.
-``conv3d.launches`` counts kernel launches.
+``conv3d.launches`` counts kernel launches, and ``conv3d.route_launches``
+the launches of each route, by ``conv3d_route``'s name.
 """
 
 from __future__ import annotations
@@ -39,13 +42,16 @@ from surfacenet_tpu_torch.ops.conv3d import conv3d_plain
 from surfacenet_tpu_torch.ops.cuda import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+ROUTES = ("wgmma", "halo_mma", "wmma_scalar")
+# every route's Cout, and the wgmma route's Cin, are multiples of this
+CHANNEL_MULTIPLE = 8
 
 
 def conv3d_route(cin: int) -> str:
     """The route the C entry ``conv3d`` takes for ``cin`` input channels."""
-    if cin % 8 == 0:
+    if cin % CHANNEL_MULTIPLE == 0:
         return "wgmma"
-    if cin < 8:
+    if cin < CHANNEL_MULTIPLE:
         return "halo_mma"
     return "wmma_scalar"
 
@@ -79,8 +85,9 @@ def _check(x, w, b, dil):
 
 def _check_kernel(x, w):
     """What the kernel alone needs (the plain version takes any Cout)."""
-    if w.shape[1] % 8:
-        raise ValueError(f"Cout must be a multiple of 8, got {w.shape[1]}")
+    if w.shape[1] % CHANNEL_MULTIPLE:
+        raise ValueError(f"Cout must be a multiple of {CHANNEL_MULTIPLE}, "
+                         f"got {w.shape[1]}")
     for name, t in (("x", x), ("w", w)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
@@ -103,10 +110,11 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dil: int = 1,
     B, R, cin, cout = x.shape[0], x.shape[1], x.shape[4], w.shape[1]
     out = torch.empty((B, R, R, R, cout), dtype=torch.bfloat16,
                       device=x.device)
+    route = conv3d_route(cin)
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
         # the wgmma route's K-contiguous weights (see the module docstring)
-        wt = w.t().contiguous() if conv3d_route(cin) == "wgmma" else None
+        wt = w.t().contiguous() if route == "wgmma" else None
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(),
                  wt.data_ptr() if wt is not None else None, b.data_ptr(),
@@ -115,7 +123,9 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dil: int = 1,
     if err != 0:
         raise RuntimeError(f"conv3d kernel launch failed: CUDA error {err}")
     conv3d.launches += 1
+    conv3d.route_launches[route] += 1
     return out
 
 
 conv3d.launches = 0
+conv3d.route_launches = dict.fromkeys(ROUTES, 0)

@@ -8,7 +8,9 @@ The source file's header states the kernel's bound and design.
 kernel for tensors on a CUDA device; there is no other route.
 ``warp_gather.launches`` counts kernel launches, and
 ``warp_gather.entry_launches`` the launches of each entry (bf16, f32,
-int8).
+int8).  The kernel reads RGBx images (a fourth, unread channel: one aligned
+load a pixel); three-channel images on a CUDA device are copied to RGBx
+first.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import ctypes
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from surfacenet_tpu_torch.ops.cuda import _build
 from surfacenet_tpu_torch.ops.cvc import build_cvc_views
@@ -39,8 +42,9 @@ def _kernel_fn(dtype):
 
 def _check(images, Ps, view_idx, origins):
     dev = images.device
-    if images.dim() != 4 or images.shape[-1] != 3:
-        raise ValueError(f"images must be (V, H, W, 3), got {tuple(images.shape)}")
+    if images.dim() != 4 or images.shape[-1] not in (3, 4):
+        raise ValueError(
+            f"images must be (V, H, W, 3) or (V, H, W, 4), got {tuple(images.shape)}")
     if images.dtype not in _ENTRY:
         raise TypeError(
             f"images must be bfloat16, float32 or int8, got {images.dtype}")
@@ -74,7 +78,10 @@ def warp_gather(
     Args:
       images: (V, H, W, 3) bfloat16 or float32, contiguous; or int8
         ``round(x * 127)`` (``ops/cvc.py::quantize_int8``), sampled as the
-        reference's int8 kernel mode samples it.
+        reference's int8 kernel mode samples it.  (V, H, W, 4) is taken
+        too (RGBx, ``pipeline/sweep.py::gather_images``): channel 3 is
+        never read.  The kernel takes only RGBx; on a CUDA device
+        three-channel images are copied to RGBx for the call.
       Ps: (V, 3, 4) float32; view_idx: (B,) int32 in [0, V);
       origins: (B, 3) float32 cube min corners (mm).
 
@@ -87,10 +94,14 @@ def warp_gather(
         return build_cvc_views(images, Ps, view_idx, origins, D, s)
     if images.device.type != "cuda":
         raise ValueError(f"warp_gather: unsupported device {images.device}")
-    if D * D * D >= 2**31:
-        raise ValueError(f"D={D} too large")
+    if D > 1024:
+        raise ValueError(f"D={D} too large: the kernel takes D <= 1024")
+    if images.shape[-1] == 3:
+        images = F.pad(images, (0, 1)).contiguous()
+    if images.data_ptr() % 16:
+        raise ValueError("images must be 16-byte aligned")
     B = view_idx.shape[0]
-    H, W = images.shape[1], images.shape[2]
+    H, W = images.shape[1:3]
     colors = torch.empty((B, D, D, D, 3), dtype=torch.float32,
                          device=images.device)
     valid = torch.empty((B, D, D, D), dtype=torch.bool, device=images.device)

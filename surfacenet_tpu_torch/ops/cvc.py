@@ -154,7 +154,8 @@ def build_cvc_views(
 
     Args:
       images: (V, H, W, 3) float32 or bfloat16, or int8 from
-        ``quantize_int8`` (see ``_bilinear_int8``).
+        ``quantize_int8`` (see ``_bilinear_int8``); or (V, H, W, 4), RGBx,
+        whose channel 3 is not read.
       Ps: (V, 3, 4) float32.
       view_idx: (B,) integer; origins: (B, 3) float32.
 
@@ -176,6 +177,7 @@ def build_cvc_views(
     u = nu / d
     v = nv / d
     base = (view_idx.long() * (H * W)).reshape(B, 1, 1, 1)
-    colors, inside = _bilinear(images.reshape(-1, C), base, u, v, H, W)
+    colors, inside = _bilinear(images.reshape(-1, C)[:, :3], base, u, v, H,
+                               W)
     valid = inside & (den > 0)
     return torch.where(valid[..., None], colors, 0.0), valid

@@ -169,7 +169,7 @@ def pool_views_for(uniq_views: torch.Tensor, n_pool_views: int, n_pairs: int):
 
 
 def cube_batch_step(
-    images: torch.Tensor,  # (V, H, W, 3) gather dtype (``gather_images``)
+    images: torch.Tensor,  # (V, H, W, 3 or 4) gather dtype (``gather_images``)
     Ps: torch.Tensor,  # (V, 3, 4) float32
     origins: torch.Tensor,  # (Nc, 3) float32
     pair_w: torch.Tensor,  # (Nc, Npairs) float32
@@ -464,11 +464,18 @@ def sweep_gather_dtype(cfg: Config) -> torch.dtype:
 
 
 def gather_images(images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The sweep's one image copy for the gather: ``images`` (float, [0, 1])
-    cast to ``dtype``, or for int8 quantized to ``round(x * 127)``."""
+    """The sweep's one image copy for the gather: ``images`` (V, H, W, 3)
+    (float, [0, 1]) cast to ``dtype``, or for int8 quantized to
+    ``round(x * 127)``.  On a CUDA device as RGBx (V, H, W, 4) with a zero
+    fourth channel, so that the gather kernel reads a pixel with one
+    aligned load; on the CPU, where the plain version reads three channels,
+    as (V, H, W, 3)."""
     if dtype == torch.int8:
-        return quantize_int8(images)
-    return images.to(dtype).contiguous()
+        images = quantize_int8(images)
+    images = images.to(dtype)
+    if images.is_cuda:
+        images = F.pad(images, (0, 1))
+    return images.contiguous()
 
 
 def _check_supported(cfg: Config) -> None:

@@ -6,9 +6,13 @@ bf16 products in float32, in different orders, then round to bf16; the
 second term covers outputs near zero).  ``fold_bn`` on the converted state
 dict: within one float32 ulp of the reference's on the flax params.  The
 fused forward against the reference's ``fused_infer_apply`` (interpret
-mode) at ``ModelConfig.tiny()``: probabilities within 1e-2, because conv
-outputs whose float32 sums differ in order can round to neighbouring bf16
-values.
+mode) at ``ModelConfig.tiny()`` and at the paper width ``ModelConfig()``:
+probabilities within 1e-2, because conv outputs whose float32 sums differ
+in order can round to neighbouring bf16 values.  ``fused_params`` pads
+every conv's channels to a multiple of 8 (zero weights and biases): every
+model width then takes a fast route of the conv kernel, the padded and
+unpadded parameters give the same probabilities, and aligned widths come
+out unchanged.
 """
 
 import dataclasses
@@ -27,7 +31,8 @@ from surfacenet_tpu.ops.pallas.conv3d import conv3d_pallas
 from surfacenet_tpu_torch.config import ModelConfig as TModel
 from surfacenet_tpu_torch.models.convert import params_from_jax
 from surfacenet_tpu_torch.models.surfacenet import (
-    SurfaceNet, fold_bn, fused_infer_apply, fused_params, make_predictor,
+    DTYPES, SurfaceNet, fold_bn, fused_infer_apply, fused_params,
+    init_surfacenet, make_predictor,
 )
 from surfacenet_tpu_torch.ops.conv3d import conv3d_plain, pack_conv_weight
 from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d, conv3d_route
@@ -180,3 +185,133 @@ def test_fused_route_only_for_resize_side_layers():
     with pytest.raises(NotImplementedError):
         fused_infer_apply(tcfg, fused_params(net.state_dict(), tcfg, "cpu"),
                           x)
+
+
+FACTORIES = {"paper": TModel, "mxu_aligned": TModel.mxu_aligned,
+             "fast": TModel.fast, "fast64": TModel.fast64,
+             "tiny": TModel.tiny}
+
+
+def _unpadded_params(state_dict, cfg):
+    """``fused_params`` without the channel padding: each 3^3 kernel packed
+    at its own width."""
+    sd = {k: v.detach().float() for k, v in state_dict.items()}
+    dt = DTYPES[cfg.dtype]
+
+    def folded(conv, bn):
+        return fold_bn(sd[conv + "weight"], sd[bn + "weight"],
+                       sd[bn + "bias"], sd[bn + "running_mean"],
+                       sd[bn + "running_var"])
+
+    blocks = []
+    for b, (n_convs, dil) in enumerate(zip(cfg.convs_per_block,
+                                           cfg.dilations)):
+        convs = []
+        for i in range(n_convs):
+            w, bias = folded(f"blocks.{b}.convs.{i}.", f"blocks.{b}.bns.{i}.")
+            convs.append((pack_conv_weight(w).to(torch.bfloat16).contiguous(),
+                          bias.contiguous(), dil))
+        sw, sb = folded(f"sides.{b}.conv.", f"sides.{b}.bn.")
+        blocks.append({"convs": convs,
+                       "side_w": sw[:, :, 0, 0, 0].t().to(dt).contiguous(),
+                       "side_b": sb.to(dt)})
+    return {"blocks": blocks,
+            "head_w": sd["head.weight"][:, :, 0, 0, 0].t().to(dt).contiguous(),
+            "head_b": sd["head.bias"].to(dt)}
+
+
+def _seeded_net(cfg, seed):
+    """A SurfaceNet of seeded weights and non-identity BatchNorm
+    statistics."""
+    gen = torch.Generator().manual_seed(seed)
+    net = init_surfacenet(cfg, gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return net
+
+
+@pytest.mark.parametrize("name", list(FACTORIES))
+def test_fused_params_send_every_conv_to_a_fast_route(name):
+    cfg = FACTORIES[name]()
+    params = fused_params(init_surfacenet(cfg, torch.Generator().manual_seed(
+        0)).state_dict(), cfg, "cpu")
+    cin = cfg.in_channels
+    for blk, ch, n_convs in zip(params["blocks"], cfg.block_channels,
+                                cfg.convs_per_block):
+        assert len(blk["convs"]) == n_convs
+        for w, b, _ in blk["convs"]:
+            assert w.shape == (27 * cin, -(-ch // 8) * 8) and b.shape == (
+                w.shape[1],)
+            assert conv3d_route(cin) in ("wgmma", "halo_mma")
+            cin = w.shape[1]
+        assert blk["side_w"].shape == (cin, cfg.side_channels)
+    # the paper width's 300 becomes 304, tiny's 12 becomes 16
+    widths = [w.shape[1] for blk in params["blocks"] for w, _, _ in
+              blk["convs"]]
+    assert {"paper": 304 in widths and 300 not in widths,
+            "tiny": 16 in widths and 12 not in widths}.get(name, True)
+
+
+@pytest.mark.parametrize("name", ["fast64", "mxu_aligned", "fast"])
+def test_fused_params_leave_aligned_widths_unchanged(name):
+    cfg = FACTORIES[name]()
+    sd = _seeded_net(cfg, 4).state_dict()
+    got, want = fused_params(sd, cfg, "cpu"), _unpadded_params(sd, cfg)
+    for g, w in zip(got["blocks"], want["blocks"]):
+        for (gw, gb, gd), (ww, wb, wd) in zip(g["convs"], w["convs"]):
+            assert torch.equal(gw, ww) and torch.equal(gb, wb) and gd == wd
+        assert torch.equal(g["side_w"], w["side_w"])
+        assert torch.equal(g["side_b"], w["side_b"])
+    assert torch.equal(got["head_w"], want["head_w"])
+    assert torch.equal(got["head_b"], want["head_b"])
+
+
+@pytest.mark.parametrize("name", ["tiny", "paper"])
+def test_padded_fused_params_give_the_same_probabilities(name):
+    """Zero channels add nothing: the padded parameters and a packing at
+    the model's own widths give the same forward through the plain conv."""
+    cfg = dataclasses.replace(FACTORIES[name](), fused_inference=True)
+    sd = _seeded_net(cfg, 5).state_dict()
+    x = torch.tensor(np.random.default_rng(6).standard_normal(
+        (1, D, D, D, 6)).astype(np.float32)).to(DTYPES[cfg.dtype])
+    with torch.inference_mode():
+        got = fused_infer_apply(cfg, fused_params(sd, cfg, "cpu"), x,
+                                conv=conv3d_plain)
+        want = fused_infer_apply(cfg, _unpadded_params(sd, cfg), x,
+                                 conv=conv3d_plain)
+    assert got.shape == (1, D, D, D) and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def paper_variables():
+    """flax paper-width SurfaceNet variables as numpy, with seeded
+    non-identity BatchNorm statistics."""
+    net = JSurfaceNet(JModel())
+    v = jax.jit(lambda k, x: net.init(k, x, train=False))(
+        jax.random.PRNGKey(1), jnp.zeros((1, D, D, D, 6)))
+    return _with_bn_stats(jax.tree_util.tree_map(np.asarray, v), 3)
+
+
+def test_fused_infer_apply_matches_reference_at_the_paper_width(
+        paper_variables):
+    """ModelConfig() (block_channels (32, 80, 160, 300), bf16): the port
+    pads block 3 to 304 channels; the reference runs 300."""
+    jcfg = JModel()
+    tcfg = dataclasses.replace(TModel(), fused_inference=True)
+    x = np.random.default_rng(7).standard_normal((1, D, D, D, 6)).astype(
+        np.float32)
+    ref = np.asarray(j_fused(jcfg, paper_variables, jnp.asarray(x),
+                             interpret=True))
+    net = SurfaceNet(tcfg)
+    net.load_state_dict(params_from_jax(paper_variables))
+    got = make_predictor(net, tcfg, "cpu")(
+        torch.tensor(x).to(torch.bfloat16), None)
+    assert got.dtype == torch.float32 and got.shape == (1, D, D, D)
+    # bf16 rounding of conv outputs whose float32 sums differ in order
+    assert np.abs(got.numpy() - ref).max() <= 1e-2

@@ -7,11 +7,17 @@ also runs on a machine without them:
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from surfacenet_tpu_torch.config import ModelConfig
 from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
+from surfacenet_tpu_torch.models.surfacenet import (
+    fused_infer_apply, fused_params, init_surfacenet, make_predictor,
+)
 from surfacenet_tpu_torch.ops.conv3d import conv3d_plain
 from surfacenet_tpu_torch.ops.cuda.affine_pool import (
     affine_pool, ray_max_mask_affine_cuda,
@@ -40,10 +46,13 @@ def scene():
     return make_sphere_scene(n_views=4, hw=(96, 128))
 
 
+@pytest.mark.parametrize("D", [32, 16, 17, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
-def test_warp_gather_kernel_matches_plain(cuda, scene, dtype):
+def test_warp_gather_kernel_matches_plain(cuda, scene, dtype, D):
+    """On the sweep's RGBx copy; D 17 ends every run of k in a ragged tail
+    and stores voxel by voxel; the cube spans 48 mm at every D."""
     rng = np.random.default_rng(0)
-    D, s, B = 32, 1.5, 7
+    s, B = 48.0 / D, 7
     images = gather_images(torch.as_tensor(scene.images, device=cuda), dtype)
     Ps = torch.as_tensor(scene.Ps, dtype=torch.float32, device=cuda)
     views = torch.as_tensor(rng.integers(0, 4, B), dtype=torch.int32,
@@ -61,6 +70,34 @@ def test_warp_gather_kernel_matches_plain(cuda, scene, dtype):
     assert (ck[~vk] == 0).all()
     if dtype == torch.int8:  # integer sums, --fmad=false: bitwise
         assert torch.equal(ck, cp) and torch.equal(vk, vp)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
+def test_warp_gather_repeat_launch_is_bitwise(cuda, scene, dtype):
+    """Two launches on the same inputs give the same bits, and three-channel
+    images (which the wrapper copies to RGBx) the same bits as the sweep's
+    RGBx copy."""
+    rng = np.random.default_rng(2)
+    D, s, B = 64, 0.75, 5
+    rgbx = gather_images(torch.as_tensor(scene.images, device=cuda), dtype)
+    assert rgbx.shape == scene.images.shape[:3] + (4,)
+    assert (rgbx[..., 3] == 0).all()
+    Ps = torch.as_tensor(scene.Ps, dtype=torch.float32, device=cuda)
+    views = torch.as_tensor(rng.integers(0, 4, B), dtype=torch.int32,
+                            device=cuda)
+    origins = torch.as_tensor(rng.uniform(-40, 0, (B, 3)),
+                              dtype=torch.float32, device=cuda)
+    before = warp_gather.launches
+    first = warp_gather(rgbx, Ps, views, origins, D=D, s=s)
+    second = warp_gather(rgbx, Ps, views, origins, D=D, s=s)
+    three = warp_gather(rgbx[..., :3].contiguous(), Ps, views, origins, D=D,
+                        s=s)
+    torch.cuda.synchronize()
+    assert warp_gather.launches == before + 3
+    assert first[1].any()
+    for other in (second, three):
+        assert torch.equal(first[0], other[0])
+        assert torch.equal(first[1], other[1])
 
 
 @pytest.mark.parametrize("window", [0, 2])
@@ -194,6 +231,38 @@ def test_conv3d_kernel_repeat_launch_is_bitwise(cuda, cin, cout, dil, R, B):
     assert torch.equal(first, second)
     ref = conv3d_plain(x, w, b, dil, True)
     assert within_one_bf16_ulp(first, ref).float().mean().item() >= 0.9999
+
+
+def test_paper_width_fused_forward_takes_no_scalar_route(cuda):
+    """ModelConfig() (block_channels (32, 80, 160, 300)) with fused
+    inference: the 12 convs run on the wgmma and halo routes (block 3 padded
+    to 304 channels), never the scalar route, and the forward agrees with
+    its plain route within 1e-2 (bf16 roundings of sums taken in another
+    order)."""
+    cfg = dataclasses.replace(ModelConfig(), fused_inference=True)
+    gen = torch.Generator().manual_seed(0)
+    net = init_surfacenet(cfg, gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    predictor = make_predictor(net, cfg, cuda)
+    x = torch.randn((2, 16, 16, 16, 6), generator=torch.Generator(
+        cuda).manual_seed(1), device=cuda).to(torch.bfloat16)
+    before = dict(conv3d.route_launches)
+    got = predictor(x, None)
+    torch.cuda.synchronize()
+    ran = {r: conv3d.route_launches[r] - before[r] for r in before}
+    assert ran == {"wgmma": 11, "halo_mma": 1, "wmma_scalar": 0}
+    with torch.inference_mode():
+        ref = fused_infer_apply(cfg, fused_params(net.state_dict(), cfg,
+                                                  cuda), x,
+                                conv=conv3d_plain)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 1e-2
 
 
 @pytest.mark.parametrize("window", [0, 2])

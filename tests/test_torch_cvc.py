@@ -122,6 +122,33 @@ def test_bf16_gather_samples_the_rounded_image_exactly(scene):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_gather_reads_rgbx_images_as_rgb(scene, dtype):
+    """RGBx images, as the sweep's copy (``gather_images``) is on a card:
+    channel 3 is not read, so (V, H, W, 4) images give the three-channel
+    output bitwise.  On the CPU the sweep keeps three channels."""
+    import torch.nn.functional as F
+
+    from surfacenet_tpu_torch.pipeline.sweep import gather_images
+
+    rgb = gather_images(torch.tensor(scene.images), dtype)
+    assert rgb.shape == scene.images.shape and rgb.dtype == dtype
+    assert rgb.is_contiguous()
+    rgbx = F.pad(rgb, (0, 1)).contiguous()
+    # a fourth channel that must not leak into the colours
+    noisy = rgbx.clone()
+    noisy[..., 3] = 1
+    args = (torch.tensor(scene.Ps, dtype=torch.float32), torch.tensor(VIEWS),
+            torch.tensor(ORIGINS))
+    three = warp_gather(rgb, *args, D=D, s=S)
+    for images in (rgbx, noisy):
+        four = warp_gather(images, *args, D=D, s=S)
+        assert torch.equal(four[0], three[0]) and torch.equal(four[1],
+                                                              three[1])
+    assert three[1].any()
+
+
 def test_build_cvc_center_and_bilinear_match_reference(scene):
     from surfacenet_tpu.ops.cvc import bilinear_sample as j_bil
     from surfacenet_tpu.ops.cvc import build_cvc as j_cvc
