@@ -12,7 +12,8 @@ the run with a non-zero exit code and no result line):
   4. main path: ``cli.reconstruct_scan`` with the ``dtu9_full`` preset
      (fast64 SurfaceNet in bf16 with seeded random weights, 64^3 cubes,
      24 cubes a batch, 5 pairs, refinement prepass on); fails unless both
-     kernels were launched by this run;
+     kernels were launched by this run, the vote on its ``tile`` route
+     (``affine_route`` of the preset's window 2);
   5. the same sweep with the photoconsistency predictor: points must come
      out, and their distance to the analytic sphere is reported;
   6. the gather and the vote against their plain PyTorch versions at the
@@ -21,6 +22,11 @@ the run with a non-zero exit code and no result line):
      gather's bytes: its outputs plus the three channels of the distinct
      pixels its valid voxels' taps read) and,
      for the gather, ``F.grid_sample``'s time on the same projected points;
+     the vote bitwise equal to its plain version at the sweep's window
+     (``tile`` route) and at window 0 (``segment`` route), each timed from
+     a CUDA graph of 20 calls (``graph_ms``: device time; the eager time of
+     20 back-to-back calls, which the wrapper's host overhead paces, beside
+     it), and fails if either took the ``direct`` route;
      then the device time of one warm batch step split into model, kernels
      and the rest;
   7. main path, fused inference: the same ``reconstruct_scan`` with
@@ -41,9 +47,10 @@ the run with a non-zero exit code and no result line):
      breakdown;
   9. the affine-pool mask through its public entry,
      ``ray_max_mask_affine_cuda``, at the first fused batch's volumes x its
-     6 pooling views, windows 0 and 2, against its plain version; the masks
-     summed over each cube's active views must equal the vote kernel's
-     votes;
+     6 pooling views, windows 0 and 2, bitwise equal to its plain version,
+     on the ``segment`` and ``tile`` routes (fails on ``direct``), timed as
+     the vote is; the masks summed over each cube's active views must equal
+     the vote kernel's votes;
   10. main path, int8 gather, from a scan on disk through the CLI: the
       sphere written as PNGs by the port's ``write_scan`` and read back by
       ``load_scan`` (bitwise the uint8 images), the seeded fast64 weights
@@ -110,7 +117,9 @@ from surfacenet_tpu_torch.ops.cuda import _build
 from surfacenet_tpu_torch.ops.cuda.affine_pool import (
     affine_pool, ray_max_mask_affine_cuda,
 )
-from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_vote
+from surfacenet_tpu_torch.ops.cuda.affine_vote import (
+    affine_route, affine_vote,
+)
 from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d, conv3d_route
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
 from surfacenet_tpu_torch.ops.cvc import build_cvc_views
@@ -163,6 +172,34 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters, replays=3):
+    """Mean device milliseconds of ``fn()`` replayed from one CUDA graph of
+    ``iters`` calls: the kernels' own time, without the host's launch
+    overhead between calls (which ``cuda_ms`` measures too once a call's
+    kernels take less time than its Python wrapper)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def bound(n_bytes, n_ops, peak_ops=PEAK_F32_S):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
@@ -193,7 +230,25 @@ def reset_counts():
     for kernel in (warp_gather, affine_vote, conv3d, affine_pool):
         kernel.launches = 0
     warp_gather.entry_launches = dict.fromkeys(warp_gather.entry_launches, 0)
-    conv3d.route_launches = dict.fromkeys(conv3d.route_launches, 0)
+    for kernel in (conv3d, affine_vote, affine_pool):
+        kernel.route_launches = dict.fromkeys(kernel.route_launches, 0)
+
+
+def routes_taken(kernel, fn):
+    """``fn()``'s result and the routes of ``kernel`` that it launched."""
+    before = dict(kernel.route_launches)
+    out = fn()
+    return out, [r for r, n in kernel.route_launches.items()
+                 if n != before[r]]
+
+
+def check_route(name, window, taken, want):
+    """Fail unless one call took route ``want`` (``affine_route``'s choice),
+    and never ``direct`` at the windows the sweep and window 0 use."""
+    log(f"{name} window {window}: route {taken}")
+    if taken != [want] or want == "direct":
+        raise RuntimeError(f"{name} at window {window} took {taken}, "
+                           f"expected [{want!r}] and not the direct route")
 
 
 def within_one_bf16_ulp(got, ref):
@@ -365,16 +420,24 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches = {"warp_gather": warp_gather.launches,
                 "affine_vote": affine_vote.launches}
+    vote_routes = dict(affine_vote.route_launches)
     log(f"stages {json.dumps(timings)} total {wall:.3f} s")
     log(f"cubes {stats.n_cubes_after_prefilter}/{stats.n_cubes_total} in "
         f"{stats.n_batches} batches, {stats.n_cubes_after_prefilter / stats.sweep_s:.2f} "
         f"cubes/s (sweep stage), non-empty {stats.n_cubes_nonempty}, "
         f"points {n_pts}, refine passes {stats.refine_info['passes']} "
         f"max shift {stats.refine_info['max_shift_px']:.3f} px")
-    log(f"kernel launches in the main path: {json.dumps(launches)}")
+    log(f"kernel launches in the main path: {json.dumps(launches)}, vote "
+        f"by route {json.dumps(vote_routes)}")
     for name, count in launches.items():
         if count <= 0:
             raise RuntimeError(f"main path did not launch kernel {name}")
+    main_route = affine_route(D, cfg.fusion.n_pool_views,
+                              resolve_pool_window(cfg))
+    if (main_route != "tile"
+            or vote_routes[main_route] != launches["affine_vote"]):
+        raise RuntimeError(f"the main path's vote ran {vote_routes}, not "
+                           f"only the tile route")
 
     phase(5, "main path with the photoconsistency predictor")
     t0 = time.perf_counter()
@@ -461,6 +524,7 @@ def main() -> int:
         gamma=cfg.fusion.gamma, adaptive=False,
         center_colors=cfg.voxel.center_colors, predict=predictor,
         n_pool_views=cfg.fusion.n_pool_views, pool_window=window,
+        ray_pool_mode="affine",
     )
     _, fused, _ = cube_batch_step(images_g, Ps_d, *batch, **step_kw)
     pool_views, view_mask = pool_views_for(
@@ -469,29 +533,42 @@ def main() -> int:
     axis, slopes = vote_params(origins, s, Ps_d[pool_views.long()],
                                view_mask, D)
     fused = fused.contiguous()
-    votes_k = affine_vote(fused, axis, slopes, window)
-    votes_p = ray_vote_affine_plain(fused, axis, slopes, window)
-    torch.cuda.synchronize()
-    v_agree = (votes_k == votes_p).float().mean().item()
-    v_err = (votes_k - votes_p).abs().max().item()
-    log(f"affine_vote: {fused.shape[0]} cubes x {axis.shape[1]} views, "
-        f"window {window}, equal votes {v_agree:.6f}, max |diff| {v_err}")
-    if v_agree < 0.9999:
-        raise RuntimeError("affine_vote disagrees with its plain version")
-    v_ms = cuda_ms(lambda: affine_vote(fused, axis, slopes, window), iters=20)
-    v_plain = cuda_ms(lambda: ray_vote_affine_plain(fused, axis, slopes,
-                                                    window), iters=3,
-                      warmup=1)
     n_active = int((axis >= 0).sum().item())
-    # the operations the function needs per (voxel, active view): the max
-    # over the ray window (2w, or with window 0 one (D-1)-way max per ray
-    # shared by its D voxels), the compare and the add.  The shear offsets
-    # depend only on (cube, view, slab) and are left out.
-    max_ops = (D - 1) / D if window <= 0 else 2 * window
-    v_bytes = (fused.numel() * 4 + axis.numel() * 4 + slopes.numel() * 4
-               + votes_k.numel() * 4)
-    v_ops = n_active * D**3 * (max_ops + 2)
-    v_bound, v_by = bound(v_bytes, v_ops)
+    vote_runs = []
+    for w in (window, 0):  # the sweep's window, then the whole segment
+        votes_k, taken = routes_taken(
+            affine_vote, lambda: affine_vote(fused, axis, slopes, w))
+        votes_p = ray_vote_affine_plain(fused, axis, slopes, w)
+        torch.cuda.synchronize()
+        v_equal = torch.equal(votes_k, votes_p)
+        v_err = (votes_k - votes_p).abs().max().item()
+        log(f"affine_vote: {fused.shape[0]} cubes x {axis.shape[1]} views, "
+            f"window {w}, bitwise equal {v_equal}, max |diff| {v_err}")
+        check_route("affine_vote", w, taken, affine_route(D, axis.shape[1], w))
+        if not v_equal:
+            raise RuntimeError(f"affine_vote differs from its plain version "
+                               f"at window {w}")
+        v_ms = graph_ms(lambda: affine_vote(fused, axis, slopes, w), iters=20)
+        v_eager = cuda_ms(lambda: affine_vote(fused, axis, slopes, w),
+                          iters=20)
+        v_plain = cuda_ms(lambda: ray_vote_affine_plain(fused, axis, slopes,
+                                                        w), iters=3, warmup=1)
+        # the operations the function needs per (voxel, active view): the
+        # max over the ray window (2w, or with window 0 one (D-1)-way max per
+        # ray shared by its D voxels), the compare and the add.  The shear
+        # offsets depend only on (cube, view, slab) and are left out.
+        max_ops = (D - 1) / D if w <= 0 else 2 * w
+        v_bytes = (fused.numel() * 4 + axis.numel() * 4 + slopes.numel() * 4
+                   + votes_k.numel() * 4)
+        v_bound, v_by = bound(v_bytes, n_active * D**3 * (max_ops + 2))
+        vote_runs.append({"window": w, "route": taken[0], "ms": v_ms,
+                          "eager_ms": v_eager, "plain_ms": v_plain, "bound_ms": v_bound,
+                          "bound_by": v_by, "max_abs_err": v_err,
+                          "bitwise_equal": v_equal})
+        log(f"affine_vote {json.dumps(vote_runs[-1])}")
+        del votes_k, votes_p
+    vote_main = vote_runs[0]
+    v_ms = vote_main["ms"]
 
     # where one warm batch step's device time goes
     step_ms = cuda_ms(lambda: cube_batch_step(
@@ -513,7 +590,7 @@ def main() -> int:
         "run_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     log(f"batch step breakdown {json.dumps(breakdown)}")
-    del fused, votes_k, votes_p
+    del fused
     torch.cuda.empty_cache()
 
     phase(7, "main path, fused inference: reconstruct_scan, dtu9_full, "
@@ -616,16 +693,21 @@ def main() -> int:
                                    view_mask, D)
     windows = (0, window)
     reset_counts()
-    masks = {w: ray_max_mask_affine_cuda(probs_i, orig_i, s, Ps_i, w)
-             for w in windows}
+    masks, pool_taken = {}, {}
+    for w in windows:
+        masks[w], pool_taken[w] = routes_taken(
+            affine_pool, lambda: ray_max_mask_affine_cuda(probs_i, orig_i, s,
+                                                          Ps_i, w))
     torch.cuda.synchronize()
     pool_launches = affine_pool.launches
+    pool_routes = dict(affine_pool.route_launches)
     axis_i, slopes_i = item_params(orig_i, s, Ps_i, D)
     pool_runs = []
     for w in windows:
+        check_route("affine_pool", w, pool_taken[w], affine_route(D, 1, w))
         mk = masks[w]
         mp = ray_max_mask_affine_batch(probs_i, orig_i, s, Ps_i, w)
-        agree_m = (mk == mp).float().mean().item()
+        m_equal = torch.equal(mk, mp)
         err_m = float((mk != mp).any().item())
         sums = (mk.reshape(-1, Kp, D, D, D)
                 & view_mask[:, :, None, None, None]).sum(dim=1,
@@ -633,8 +715,10 @@ def main() -> int:
         votes_eq = torch.equal(sums, affine_vote(fused_f.contiguous(),
                                                  axis_v, slopes_v, w))
         del mp, sums
-        m_ms = cuda_ms(lambda: affine_pool(probs_i, axis_i, slopes_i, w),
-                       iters=20)
+        m_ms = graph_ms(lambda: affine_pool(probs_i, axis_i, slopes_i, w),
+                        iters=20)
+        m_eager = cuda_ms(lambda: affine_pool(probs_i, axis_i, slopes_i, w),
+                          iters=20)
         mp_ms = cuda_ms(lambda: ray_max_mask_affine_plain(
             probs_i, axis_i, slopes_i, w), iters=3, warmup=1)
         n_vox = probs_i.numel()
@@ -643,13 +727,14 @@ def main() -> int:
                    + slopes_i.numel() * 4)
         m_bound, m_by = bound(m_bytes, n_vox * (max_ops + 1))
         run = {"window": w, "items": int(probs_i.shape[0]),
-               "mask_agreement": agree_m, "max_abs_err": err_m,
-               "sums_equal_votes": votes_eq,
-               "ms": m_ms, "plain_ms": mp_ms, "bound_ms": m_bound,
+               "route": pool_taken[w][0], "bitwise_equal": m_equal,
+               "max_abs_err": err_m, "sums_equal_votes": votes_eq,
+               "ms": m_ms, "eager_ms": m_eager, "plain_ms": mp_ms,
+               "bound_ms": m_bound,
                "bound_by": m_by}
         pool_runs.append(run)
         log(f"affine_pool {json.dumps(run)}")
-        if agree_m < 0.9999 or not votes_eq:
+        if not m_equal or not votes_eq:
             raise RuntimeError(f"affine_pool disagrees at window {w}")
     if pool_launches != len(windows):
         raise RuntimeError(f"ray_max_mask_affine_cuda launched the kernel "
@@ -901,10 +986,14 @@ def main() -> int:
             "name": "affine_vote", "route": "cuda",
             "source": "surfacenet_tpu_torch/csrc/affine_vote.cu",
             "replaces": "surfacenet_tpu/ops/pallas/affine_pool.py:239",
-            "launches": launches["affine_vote"], "max_abs_err": v_err,
-            "ms": v_ms, "plain_ms": v_plain, "bound_ms": v_bound,
-            "bound_by": v_by, "library_ms": None,
-            "vote_agreement": v_agree, "cubes": B,
+            "launches": launches["affine_vote"],
+            "max_abs_err": max(r["max_abs_err"] for r in vote_runs),
+            "ms": v_ms, "plain_ms": vote_main["plain_ms"],
+            "bound_ms": vote_main["bound_ms"],
+            "bound_by": vote_main["bound_by"], "library_ms": None,
+            "window": window, "route_launches": vote_routes,
+            "window0_ms": vote_runs[1]["ms"], "windows": vote_runs,
+            "cubes": B,
         },
         {
             "name": "conv3d", "route": "cuda",
@@ -926,7 +1015,7 @@ def main() -> int:
             "source": "surfacenet_tpu_torch/csrc/affine_pool.cu",
             "replaces": "surfacenet_tpu/ops/pallas/affine_pool.py:48",
             "path": "ray_max_mask_affine_cuda",
-            "launches": pool_launches,
+            "launches": pool_launches, "route_launches": pool_routes,
             "max_abs_err": max(r["max_abs_err"] for r in pool_runs),
             "ms": pool_main["ms"], "plain_ms": pool_main["plain_ms"],
             "bound_ms": pool_main["bound_ms"],

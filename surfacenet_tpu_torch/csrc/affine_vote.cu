@@ -7,18 +7,20 @@
 // surfacenet_tpu_torch/ops/ray_pooling.py::ray_vote_affine_plain; wrapper:
 // surfacenet_tpu_torch/ops/cuda/affine_vote.py.
 //
-// For cube n, votes[n] counts the active pooling views k (axis[n][k] >= 0,
-// slopes[n][k]) for which each voxel is a ray maximum; the ray-max test
-// (csrc/affine_ray.cuh) is the same as the affine-pool kernel's.
+// For cube n, votes[n] counts the active pooling views k (axis[n][k] in
+// {0, 1, 2}, slopes[n][k]) for which each voxel is a ray maximum
+// (csrc/affine_ray.cuh states the test and the three routes).
 //
 // Bound on an H100: device-memory bytes, N * D^3 * 4 B read plus the same
-// written; the compares (2w+1 per active view and voxel) are far below the
-// card's float32 rate.  Design: one thread per output voxel, looping over
-// the K views in registers and writing its int32 count once; no transposes
-// (the thread maps itself into each view's permuted frame), no atomics, no
-// shared memory.  The neighbours a thread reads lie in the same 1 MB cube
-// (64^3 float32) that its block's neighbours read, so they come from L1/L2
-// and device memory sees each volume about once.
+// written (0.015 ms for the sweep's 24 cubes of 64^3 at 3.35 TB/s); the
+// compares (2w+1 per active view and voxel) are far below the card's
+// float32 rate.  The first design (the direct route below: one thread a
+// voxel, each tap re-rounding two offsets and testing its bounds) was bound
+// by instructions, not bytes.  The tile route (the sweep's window 2) reads
+// each cube once into shared memory, tile by tile, and spends a load and a
+// max a tap over the K views of its cube; the segment route (window 0)
+// forms each view's ray-maximum plane once and compares every voxel with
+// it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,22 +44,39 @@ __global__ void affine_vote_kernel(const float* __restrict__ vol,
   int count = 0;
   for (int kk = 0; kk < K; ++kk) {
     const int a = axis[n * K + kk];
-    if (a < 0) continue;
-    count += affine_ray_max(p, c, pv, a, slopes[2 * (n * K + kk) + 0],
-                            slopes[2 * (n * K + kk) + 1], D, window);
+    if (a < 0 || a > 2) continue;
+    const float s0 = slopes[2 * (n * K + kk) + 0];
+    const float s1 = slopes[2 * (n * K + kk) + 1];
+    check_slopes(s0, s1);
+    count += affine_ray_max(p, c, pv, a, s0, s1, D, window);
   }
   votes[g] = count;
 }
 
+// route: AffineRoute, chosen by the wrapper; planes: (N * K, D, D) float32
+// scratch for the segment route, else unused.  Returns a CUDA error code
+// (cudaErrorInvalidValue for a route that does not take this window).
 extern "C" int affine_vote(const void* vol, const void* axis,
-                           const void* slopes, void* votes, int N, int K,
-                           int D, int window, void* stream) {
+                           const void* slopes, void* votes, void* planes,
+                           int N, int K, int D, int window, int route,
+                           void* stream) {
   const long long total = (long long)N * D * D * D;
   if (total <= 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* v = (const float*)vol;
+  const int32_t* ax = (const int32_t*)axis;
+  const float* sl = (const float*)slopes;
+  if (route == ROUTE_TILE)
+    return (int)launch_tile<false>(v, ax, sl, votes, N, K, D, window, st);
+  if (route == ROUTE_SEGMENT) {
+    if (window > 0 && window < D - 1) return (int)cudaErrorInvalidValue;
+    return (int)launch_segment<false>(v, ax, sl, (float*)planes, votes, N, K,
+                                      D, st);
+  }
+  if (route != ROUTE_DIRECT) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
-  affine_vote_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)vol, (const int32_t*)axis, (const float*)slopes,
-      (int32_t*)votes, N, K, D, window);
+  affine_vote_kernel<<<(unsigned)blocks, threads, 0, st>>>(
+      v, ax, sl, (int32_t*)votes, N, K, D, window);
   return (int)cudaGetLastError();
 }

@@ -3,30 +3,39 @@
 Replaces the Pallas TPU kernel ``surfacenet_tpu/ops/pallas/affine_pool.py::
 _affine_pool_kernel``; ``ray_max_mask_affine_cuda`` is the counterpart of
 ``ray_max_mask_affine_pallas`` and computes what ``ops/ray_pooling.py::
-ray_max_mask_affine_batch`` computes.  As in the reference, the sweep does
-not call it (the sweep votes with ``affine_vote``); it is a public
-function of its own.  The source file's header states the kernel's bound
-and design.
+ray_max_mask_affine_batch`` computes, bitwise.  As in the reference, the
+sweep does not call it (the sweep votes with ``affine_vote``); it is a
+public function of its own.  The kernel is the affine vote's with one view
+an item: the same three routes (``affine_vote.affine_route`` with K = 1),
+the same slope and grid limits (``ops/cuda/affine_vote.py``'s docstring),
+and the source files' headers state its bound and design.
 
 ``affine_pool`` runs the plain version for tensors on the CPU and the
 kernel for tensors on a CUDA device; there is no other route.
-``affine_pool.launches`` counts kernel launches.
+``affine_pool.launches`` counts entry calls that launched (the segment
+route's call is two kernel launches), ``affine_pool.route_launches`` the
+calls of each route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from surfacenet_tpu_torch.ops.cuda import _build
+from surfacenet_tpu_torch.ops.cuda.affine_vote import (
+    ROUTES, affine_route, plane_scratch,
+)
 from surfacenet_tpu_torch.ops.ray_pooling import (
     item_params, ray_max_mask_affine_plain,
 )
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = _build.load("affine_pool").affine_pool
     fn.argtypes = _ARGTYPES
@@ -58,7 +67,8 @@ def affine_pool(
     """Ray-max mask (N, D, D, D) bool of each item for its one view.
 
     probs (N, D, D, D) float32; axis (N,) int32 dominant ray axis (an item
-    with none of 0, 1, 2 gets an all-False mask); slopes (N, 2) float32.
+    with none of 0, 1, 2 gets an all-False mask); slopes (N, 2) float32 in
+    [-1, 1] (see ``ops/cuda/affine_vote.py``'s docstring for the limits).
     """
     _check(probs, axis, slopes)
     if probs.device.type == "cpu":
@@ -67,18 +77,24 @@ def affine_pool(
         raise ValueError(f"affine_pool: unsupported device {probs.device}")
     N, D = probs.shape[0], probs.shape[1]
     mask = torch.empty((N, D, D, D), dtype=torch.bool, device=probs.device)
+    route = affine_route(D, 1, window)
     fn = _kernel_fn()
     with torch.cuda.device(probs.device):
         stream = torch.cuda.current_stream().cuda_stream
+        planes = plane_scratch(route, N, D, probs.device)
         err = fn(probs.data_ptr(), axis.data_ptr(), slopes.data_ptr(),
-                 mask.data_ptr(), N, D, int(window), stream)
+                 mask.data_ptr(), planes.data_ptr() if planes is not None
+                 else None, N, D, int(window), ROUTES.index(route), stream)
     if err != 0:
-        raise RuntimeError(f"affine_pool kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"affine_pool kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
     affine_pool.launches += 1
+    affine_pool.route_launches[route] += 1
     return mask
 
 
 affine_pool.launches = 0
+affine_pool.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def ray_max_mask_affine_cuda(

@@ -2,17 +2,38 @@
 
 Replaces the Pallas TPU kernel ``surfacenet_tpu/ops/pallas/affine_pool.py::
 _affine_vote_kernel``; computes what ``ops/ray_pooling.py::
-ray_vote_affine_plain`` computes.  The source file's header states the
-kernel's bound and design.
+ray_vote_affine_plain`` computes, bitwise.  The source files' headers
+(``csrc/affine_vote.cu``, ``csrc/affine_ray.cuh``) state the kernel's bound
+and design.  Its one C entry takes one of three routes, which
+``affine_route`` names from the shapes alone (a route that fails to launch
+raises; it never falls back to another):
+
+- ``tile``: 1 <= window <= ``TILE_MAX_WINDOW`` and at most
+  ``TILE_MAX_VIEWS`` views a cube (the sweep's window 2): each cube read
+  tile by tile into shared memory with a halo, the shear offsets tabled;
+- ``segment``: window 0, or a window of D - 1 or more (the same taps): two
+  launches, a ray-maximum plane per (cube, view) into a scratch that this
+  wrapper allocates, then the compare;
+- ``direct``: any other window, the first design (one thread a voxel).
+
+Limits: slopes must lie in [-1, 1] (``vote_params`` clamps them); a slope
+outside (or NaN) makes the kernel trap, a CUDA error that the caller sees
+at its next synchronisation and that leaves the CUDA context unusable, not
+wrong output.  Each launch's grid is 1-D, so N times a cube's blocks (at D
+64: 64 tiles, or 16 K plane blocks and 64 compare blocks) must stay below
+2^31; above it the launch fails and this wrapper raises.
 
 ``affine_vote`` runs the plain version for tensors on the CPU and the
 kernel for tensors on a CUDA device; there is no other route.
-``affine_vote.launches`` counts kernel launches.
+``affine_vote.launches`` counts entry calls that launched (the segment
+route's call is two kernel launches), ``affine_vote.route_launches`` the
+calls of each route, by ``affine_route``'s name.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,9 +42,34 @@ from surfacenet_tpu_torch.ops.ray_pooling import (
     ray_vote_affine_plain, vote_params,
 )
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# the C entries' route codes (csrc/affine_ray.cuh: AffineRoute)
+ROUTES = ("tile", "segment", "direct")
+# csrc/affine_ray.cuh: the widest window the tile route is built for, and
+# the views a cube whose offset tables it keeps in shared memory
+TILE_MAX_WINDOW = 4
+TILE_MAX_VIEWS = 64
 
 
+def affine_route(D: int, K: int, window: int) -> str:
+    """The route the affine kernels take for cubes of D^3, K views a cube
+    (1 for the mask) and ``window``."""
+    if window <= 0 or window >= D - 1:
+        return "segment"
+    if window <= TILE_MAX_WINDOW and K <= TILE_MAX_VIEWS:
+        return "tile"
+    return "direct"
+
+
+def plane_scratch(route: str, n_planes: int, D: int, device):
+    """The segment route's scratch, a D x D float32 plane per (item, view);
+    None on the other routes."""
+    if route != "segment":
+        return None
+    return torch.empty((n_planes, D, D), dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = _build.load("affine_vote").affine_vote
     fn.argtypes = _ARGTYPES
@@ -56,7 +102,8 @@ def affine_vote(
     """Ray-max votes (N, D, D, D) int32 of the active views of each cube.
 
     fused (N, D, D, D) float32; axis (N, K) int32 (-1 = inactive slot);
-    slopes (N, K, 2) float32, as made by ``ray_pooling.vote_params``.
+    slopes (N, K, 2) float32 in [-1, 1], as made by
+    ``ray_pooling.vote_params`` (see the module docstring for the limits).
     """
     _check(fused, axis, slopes)
     if fused.device.type == "cpu":
@@ -66,18 +113,24 @@ def affine_vote(
     N, D = fused.shape[0], fused.shape[1]
     K = axis.shape[1]
     votes = torch.empty((N, D, D, D), dtype=torch.int32, device=fused.device)
+    route = affine_route(D, K, window)
     fn = _kernel_fn()
     with torch.cuda.device(fused.device):
         stream = torch.cuda.current_stream().cuda_stream
+        planes = plane_scratch(route, N * K, D, fused.device)
         err = fn(fused.data_ptr(), axis.data_ptr(), slopes.data_ptr(),
-                 votes.data_ptr(), N, K, D, int(window), stream)
+                 votes.data_ptr(), planes.data_ptr() if planes is not None
+                 else None, N, K, D, int(window), ROUTES.index(route), stream)
     if err != 0:
-        raise RuntimeError(f"affine_vote kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"affine_vote kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
     affine_vote.launches += 1
+    affine_vote.route_launches[route] += 1
     return votes
 
 
 affine_vote.launches = 0
+affine_vote.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def ray_vote_affine(

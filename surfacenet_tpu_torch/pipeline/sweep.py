@@ -191,7 +191,7 @@ def cube_batch_step(
     compact_output: bool = False,
     compact_k: int = 0,
     pool_window: int = 0,
-    ray_pool_mode: str = "affine",
+    ray_pool_mode: str = "exact",
 ):
     """One device step over a fixed-size batch of cubes.
 

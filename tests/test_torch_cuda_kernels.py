@@ -8,6 +8,9 @@ also runs on a machine without them:
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -22,12 +25,13 @@ from surfacenet_tpu_torch.ops.conv3d import conv3d_plain
 from surfacenet_tpu_torch.ops.cuda.affine_pool import (
     affine_pool, ray_max_mask_affine_cuda,
 )
-from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_vote
+from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_route, affine_vote
 from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
 from surfacenet_tpu_torch.ops.cvc import build_cvc_views
 from surfacenet_tpu_torch.ops.ray_pooling import (
-    ray_max_mask_affine_batch, ray_vote_affine_plain, vote_params,
+    ray_max_mask_affine_batch, ray_max_mask_affine_plain,
+    ray_vote_affine_plain, vote_params,
 )
 from surfacenet_tpu_torch.pipeline.sweep import gather_images
 
@@ -114,11 +118,14 @@ def test_affine_vote_kernel_matches_plain(cuda, scene, window):
     mask[0, 3] = False
     axis, slopes = vote_params(origins, s, Ps_pool, mask, D)
     before = affine_vote.launches
+    routes = dict(affine_vote.route_launches)
     vk = affine_vote(fused, axis, slopes, window)
     vp = ray_vote_affine_plain(fused, axis, slopes, window)
     torch.cuda.synchronize()
     assert affine_vote.launches == before + 1
-    assert (vk == vp).float().mean().item() >= 0.9999
+    route = "tile" if window else "segment"
+    assert affine_vote.route_launches[route] == routes[route] + 1
+    assert torch.equal(vk, vp)
 
 
 def test_kernels_reject_bad_inputs(cuda):
@@ -286,7 +293,7 @@ def test_affine_pool_kernel_matches_plain_and_sums_to_votes(cuda, scene,
     torch.cuda.synchronize()
     assert affine_pool.launches == before + 1
     assert mk.dtype == torch.bool
-    assert (mk == mp).float().mean().item() >= 0.9999
+    assert torch.equal(mk, mp)
     # summed over the views of each cube, the masks are the votes
     active = torch.ones((N, K), dtype=torch.bool, device=cuda)
     axis, slopes = vote_params(origins, s, Ps_pool, active, D)
@@ -315,3 +322,106 @@ def test_new_kernels_reject_bad_inputs(cuda):
         with pytest.raises(ValueError):
             affine_pool(**(dict(probs=probs, axis=axis, slopes=slopes)
                            | bad))
+
+
+def affine_inputs(device, seed, N, K, D):
+    """Volumes with many ties (values on a grid of 1/8: the 1e-6 margin and
+    equal maxima matter), axes drawn from {-1, 0, 1, 2} and slopes uniform
+    in [-1, 1] with exact -1, 1 and 0 among them."""
+    rng = np.random.default_rng(seed)
+    vol = np.round(rng.uniform(size=(N, D, D, D)) * 8) / 8
+    axis = rng.integers(-1, 3, (N, K))
+    axis[0, :3] = (0, 1, 2)
+    slopes = rng.uniform(-1, 1, (N, K, 2))
+    slopes[0, 0] = (1.0, -1.0)
+    slopes[0, 1] = (-1.0, 0.0)
+    slopes[0, 2] = (0.0, 1.0)
+    return (torch.as_tensor(vol, dtype=torch.float32, device=device),
+            torch.as_tensor(axis, dtype=torch.int32, device=device),
+            torch.as_tensor(slopes, dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize("D", [17, 64])
+@pytest.mark.parametrize("window", [0, 1, 2, 3, "D-1"])
+def test_affine_kernels_match_plain_on_every_route(cuda, D, window):
+    """The vote (3 cubes x 6 views) and the mask (its 18 items) bitwise
+    equal to their plain versions, on the route ``affine_route`` names:
+    tile for windows 1-3, segment for 0 and D - 1 (the same taps); D 17
+    leaves ragged tiles and rows."""
+    window = D - 1 if window == "D-1" else window
+    N, K = 3, 6
+    vol, axis, slopes = affine_inputs(cuda, D + window, N, K, D)
+    route = "segment" if window in (0, D - 1) else "tile"
+    assert affine_route(D, K, window) == affine_route(D, 1, window) == route
+    v_routes = dict(affine_vote.route_launches)
+    p_routes = dict(affine_pool.route_launches)
+    votes = affine_vote(vol, axis, slopes, window)
+    items = vol.repeat_interleave(K, dim=0)
+    mask = affine_pool(items, axis.reshape(-1), slopes.reshape(-1, 2),
+                       window)
+    torch.cuda.synchronize()
+    assert affine_vote.route_launches[route] == v_routes[route] + 1
+    assert affine_pool.route_launches[route] == p_routes[route] + 1
+    assert torch.equal(votes, ray_vote_affine_plain(vol, axis, slopes,
+                                                    window))
+    assert torch.equal(mask, ray_max_mask_affine_plain(
+        items, axis.reshape(-1), slopes.reshape(-1, 2), window))
+    assert not mask.reshape(N, K, D, D, D)[axis < 0].any()
+    assert 0 < votes.max().item() <= K
+
+
+@pytest.mark.parametrize("window", [0, 2, 5])
+def test_affine_kernels_repeat_launch_is_bitwise(cuda, window):
+    """Two launches on the same inputs give the same bits on each route
+    (segment, tile, direct at D 32), equal to the plain versions."""
+    D, N, K = 32, 4, 6
+    vol, axis, slopes = affine_inputs(cuda, 7, N, K, D)
+    route = affine_route(D, K, window)
+    assert route == {0: "segment", 2: "tile", 5: "direct"}[window]
+    first = affine_vote(vol, axis, slopes, window)
+    second = affine_vote(vol, axis, slopes, window)
+    items = vol.repeat_interleave(K, dim=0)
+    m1 = affine_pool(items, axis.reshape(-1), slopes.reshape(-1, 2), window)
+    m2 = affine_pool(items, axis.reshape(-1), slopes.reshape(-1, 2), window)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(m1, m2)
+    assert torch.equal(first, ray_vote_affine_plain(vol, axis, slopes,
+                                                    window))
+    assert torch.equal(m1.reshape(N, K, D, D, D).sum(1, dtype=torch.int32),
+                       first)
+
+
+_BAD_SLOPE = """
+import sys, torch
+from surfacenet_tpu_torch.ops.cuda.affine_pool import affine_pool
+from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_vote
+kernel, window = sys.argv[1], int(sys.argv[2])
+dev = torch.device("cuda", 0)
+vol = torch.rand((2, 32, 32, 32), device=dev)
+axis = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+slopes = torch.zeros((2, 1, 2), device=dev)
+slopes[1, 0, 1] = 1.5
+if kernel == "vote":
+    out = affine_vote(vol, axis, slopes, window)
+else:
+    out = affine_pool(vol, axis[:, 0].contiguous(), slopes[:, 0].contiguous(),
+                      window)
+torch.cuda.synchronize()
+print("OUTPUT", int(out.sum()))
+"""
+
+
+@pytest.mark.parametrize("kernel,window", [
+    ("vote", 2), ("vote", 0), ("vote", 5), ("mask", 2)])
+def test_affine_kernels_refuse_a_slope_above_one(cuda, kernel, window):
+    """A slope of 1.5 (outside vote_params' clamp) traps on every route: a
+    CUDA error, no output.  In a child process, since a trap leaves the
+    CUDA context unusable."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    run = subprocess.run([sys.executable, "-c", _BAD_SLOPE, kernel,
+                          str(window)], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode != 0
+    assert "OUTPUT" not in run.stdout
+    assert "CUDA" in run.stderr or "cuda" in run.stderr

@@ -26,7 +26,7 @@ from surfacenet_tpu_torch.ops.cuda.affine_pool import (
     affine_pool, ray_max_mask_affine_cuda,
 )
 from surfacenet_tpu_torch.ops.cuda.affine_vote import (
-    affine_vote, ray_vote_affine,
+    affine_route, affine_vote, ray_vote_affine,
 )
 from surfacenet_tpu_torch.ops.ray_pooling import (
     _projection_jacobian, item_params, ray_max_mask_affine,
@@ -183,6 +183,18 @@ def test_masks_summed_over_views_are_the_votes(case, window):
     # inactive slots (axis -1) give all-False masks
     assert not masks[torch.tensor(~mask)].any()
     np.testing.assert_array_equal(masks.sum(dim=1).numpy(), votes.numpy())
+
+
+@pytest.mark.parametrize("D,K,window,route", [
+    (64, 6, 2, "tile"), (64, 1, 1, "tile"), (17, 6, 4, "tile"),
+    (64, 6, 0, "segment"), (64, 1, -1, "segment"), (17, 6, 16, "segment"),
+    (64, 6, 63, "segment"), (64, 6, 5, "direct"), (64, 65, 2, "direct"),
+])
+def test_affine_route_by_shape(D, K, window, route):
+    """The kernels' route follows the shapes alone: the tile for windows
+    1-4 (at most 64 views a cube), the segment for the whole ray (window 0,
+    or D - 1 and more, the same taps), the first design otherwise."""
+    assert affine_route(D, K, window) == route
 
 
 def test_affine_pool_rejects_bad_inputs():

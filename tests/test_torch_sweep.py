@@ -117,7 +117,7 @@ def test_cube_batch_step_matches_pallas_path(scene, batch, predictor,
     got = T.cube_batch_step(
         T.gather_images(torch.tensor(scene.images), T.GATHER_DTYPES[gather]),
         torch.tensor(scene.Ps, dtype=torch.float32),
-        **_port_args(batch), predict=t_pred, **kw,
+        **_port_args(batch), predict=t_pred, ray_pool_mode="affine", **kw,
     )
     occ_j, fused_j, color_j = (np.asarray(a) for a in ref)
     occ_t, fused_t, color_t = (a.numpy() for a in got)
@@ -178,7 +178,7 @@ def test_cube_batch_step_fused_inference_matches_reference(scene, batch):
     got = T.cube_batch_step(
         torch.tensor(scene.images), torch.tensor(scene.Ps,
                                                  dtype=torch.float32),
-        **_port_args(batch), predict=t_pred, **kw,
+        **_port_args(batch), predict=t_pred, ray_pool_mode="affine", **kw,
     )
     occ_j, fused_j, color_j = (np.asarray(a) for a in ref)
     occ_t, fused_t, color_t = (a.numpy() for a in got)
@@ -193,7 +193,7 @@ def test_cube_batch_step_fused_inference_matches_reference(scene, batch):
 def test_compact_records_round_trip_like_reference(scene, batch):
     kw = dict(D=D, s=S, n_pairs=2, tau=0.3, gamma=0.6, adaptive=False,
               center_colors=True, n_pool_views=3, pool_window=2,
-              compact_k=300)
+              compact_k=300, ray_pool_mode="affine")
     images = torch.tensor(scene.images)
     Ps = torch.tensor(scene.Ps, dtype=torch.float32)
     args = _port_args(batch)
@@ -216,6 +216,17 @@ def test_compact_records_round_trip_like_reference(scene, batch):
     np.testing.assert_array_equal(o[full], occ.numpy()[full])
     assert np.abs(f[full][o[full]] - fused.numpy()[full][o[full]]).max() \
         <= 0.5 / 255 + 1e-6
+
+
+def test_cube_batch_step_pooling_default_matches_reference():
+    """A caller that leaves out ``ray_pool_mode`` pools the same way in
+    both packages."""
+    import inspect
+
+    def default(fn):
+        return inspect.signature(fn).parameters["ray_pool_mode"].default
+
+    assert default(T.cube_batch_step) == default(J.cube_batch_step)
 
 
 def _configs(**sweep_kw):
