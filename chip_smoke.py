@@ -83,7 +83,26 @@ the run with a non-zero exit code and no result line):
       and cuDNN's time at the unpadded width, the forward against its
       plain route (within 1e-2) and the unfused cuDNN forward (within
       0.03) with the same weights, and the warm batch step;
-  15. the result line.
+  15. training at ``dtu9_full`` (fast64 widths, 64^3 cubes of 0.4 mm,
+      batch 32, bf16 on float32 master weights): (a) one batch of the
+      device sampler on the synthetic sphere ``cli train`` uses (8 views of
+      240x320) through ``build_cvc_batch_cuda`` (64 gather items, the bf16
+      entry once) against ``build_cvc_batch`` on the same bf16 images:
+      validity agreement >= 0.9999 and |x diff| <= 2e-3 where both are
+      valid; its time beside its bound; (b) ``train_surfacenet`` on that
+      sphere, 100 steps on the scan path (4 chunks of 25): warm ms per step
+      from CUDA events around chunks 2-4, steps/s, cubes/s, peak memory and
+      the gather's launches (one a step), each on its own line; fails
+      unless every loss is finite and the last 25 average below the first
+      25; then a warm step split by CUDA events into sampling, gather,
+      forward, backward and update; (c) ``cli.main(["train", "--scan",
+      ..., "--gt", ...])`` on phase 10's scan and phase 12's ground truth at
+      ``dtu9_full`` (the pool path, a pool of 64 cubes), 25 steps: must
+      write ``step_25/model.npz``; (d) ``cli reconstruct --checkpoint`` with
+      (b)'s ``step_100/model.npz`` on that scan (``fusion.tau=0.5``, as
+      phase 10): must write its ``.ply`` (the point count is reported, not
+      gated);
+  16. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  Writes only to a temporary directory and to the
@@ -92,6 +111,7 @@ package's git-ignored build directory.  Needs no PIL.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -121,8 +141,12 @@ from surfacenet_tpu_torch.ops.cuda.affine_vote import (
     affine_route, affine_vote,
 )
 from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d, conv3d_route
-from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
-from surfacenet_tpu_torch.ops.cvc import build_cvc_views
+from surfacenet_tpu_torch.ops.cuda.warp_gather import (
+    build_cvc_batch_cuda, warp_gather,
+)
+from surfacenet_tpu_torch.ops.cvc import (
+    build_cvc_batch, build_cvc_views, pair_views,
+)
 from surfacenet_tpu_torch.ops.ray_pooling import (
     item_params, ray_max_mask_affine_batch, ray_max_mask_affine_plain,
     ray_vote_affine_plain, vote_params,
@@ -131,6 +155,8 @@ from surfacenet_tpu_torch.pipeline.sweep import (
     cube_batch_step, gather_images, photoconsistency_predictor, plan_sweep,
     pool_views_for, resolve_pool_window,
 )
+from surfacenet_tpu_torch.train import train_surface
+from surfacenet_tpu_torch.train.losses import class_balanced_bce
 from surfacenet_tpu_torch.utils.metrics import voxel_set_agreement
 from surfacenet_tpu_torch.utils.ply import read_ply, write_ply
 
@@ -224,6 +250,28 @@ def footprint_pixels(nu, nv, den, views, H, W):
             touched[base + (v0 + dv).clamp(max=H - 1) * W
                     + (u0 + du).clamp(max=W - 1)] = True
     return int(touched.sum().item())
+
+
+def gather_bound(images_g, Ps_d, views, vorig, D, s, n_valid):
+    """(ms, "bytes" or "operations", pixels): the card's least time for the
+    gather of these items: its outputs plus three channels of the distinct
+    pixels its valid voxels' taps read (``pixels``), each byte moved once,
+    or its float32 operations."""
+    n_items = views.shape[0]
+    H, W = images_g.shape[1], images_g.shape[2]
+    r = (torch.arange(D, dtype=torch.float32, device=vorig.device) + 0.5) * s
+    nu, nv, den = project_rows(
+        Ps_d[views.long()].reshape(n_items, 1, 1, 3, 4),
+        vorig[:, 0, None, None, None] + r[None, :, None, None],
+        vorig[:, 1, None, None, None] + r[None, None, :, None],
+        vorig[:, 2, None, None, None] + r[None, None, None, :],
+    )
+    n_pixels = footprint_pixels(nu, nv, den, views, H, W)
+    n_bytes = (n_pixels * 3 * images_g.element_size() + Ps_d.numel() * 4
+               + views.numel() * 4 + vorig.numel() * 4
+               + n_items * D**3 * (3 * 4 + 1))
+    n_ops = n_items * D**3 * GATHER_OPS_ALL + n_valid * GATHER_OPS_VALID
+    return bound(n_bytes, n_ops) + (n_pixels,)
 
 
 def reset_counts():
@@ -368,6 +416,183 @@ def forward_diffs(predictor, cfg_model, params, model, x):
             unfused)
 
 
+def training_phase(dev, tmp, scan_dir, gt_ply):
+    """Phase 15: training at ``dtu9_full``, through ``train_surfacenet`` and
+    ``cli train``; returns the numbers for the gather's kernels entry and
+    the phase's readings."""
+    cfg = baseline_config("dtu9_full")
+    D, s = cfg.voxel.cube_size, cfg.voxel.voxel_size_mm
+    tc = cfg.train
+    sphere = make_sphere_scene(n_views=8, hw=(240, 320))  # cli train's scene
+
+    # (a) one training batch from the device sampler: the gather kernel's
+    # CVC pairs against the plain version on the same bf16 RGBx images
+    sampler = train_surface.make_device_sampler(sphere, cfg, seed=tc.seed,
+                                                device=dev)
+    gen = torch.Generator(dev).manual_seed(5)
+    origins, pair_idx, _ = train_surface.sample_device_batch(
+        sampler, gen, batch=tc.batch_size, D=D, s=s)
+    images_g = train_surface.gather_copy(sphere.images, cfg, dev)
+    Ps_d = torch.as_tensor(sphere.Ps, dtype=torch.float32, device=dev)
+    reset_counts()
+    x_k, v_k = build_cvc_batch_cuda(images_g, Ps_d, pair_idx, origins, D=D,
+                                    s=s)
+    launches = warp_gather.entry_launches["warp_gather_bf16"]
+    x_p, v_p = build_cvc_batch(images_g, Ps_d, pair_idx, origins, D, s)
+    torch.cuda.synchronize()
+    agree = (v_k == v_p).float().mean().item()
+    err = (x_k - x_p).abs()[v_k & v_p].max().item()
+    del x_p, v_p
+    log(f"training gather: {2 * tc.batch_size} items of {D}^3 "
+        f"({tc.batch_size} pairs), validity agreement {agree:.6f}, max |x "
+        f"diff| {err:.3e}, bf16 entry launches {launches}")
+    if agree < 0.9999 or err > 2e-3 or launches != 1:
+        raise RuntimeError("the training gather disagrees with its plain "
+                           "version or did not launch the bf16 entry once")
+    views, vorig = pair_views(pair_idx, origins)
+    n_valid = int(warp_gather(images_g, Ps_d, views, vorig, D=D, s=s)[1]
+                  .sum().item())
+    k_ms = cuda_ms(lambda: warp_gather(images_g, Ps_d, views, vorig, D=D,
+                                       s=s), iters=20)
+    b_ms = cuda_ms(lambda: build_cvc_batch_cuda(
+        images_g, Ps_d, pair_idx, origins, D=D, s=s), iters=10)
+    p_ms = cuda_ms(lambda: build_cvc_batch(images_g, Ps_d, pair_idx, origins,
+                                           D, s), iters=3, warmup=1)
+    k_bound, k_by, _ = gather_bound(images_g, Ps_d, views, vorig, D, s,
+                                    n_valid)
+    gather = {"items": views.shape[0], "validity_agreement": agree,
+              "max_abs_err": err, "kernel_ms": k_ms,
+              "bound_ms": k_bound, "bound_by": k_by, "batch_ms": b_ms,
+              "batch_plain_ms": p_ms}
+    log(f"training gather {json.dumps(gather)}")
+    del x_k, v_k
+
+    # (b) train_surfacenet, the scan path: 4 chunks of 25 steps, full
+    # width; CUDA events around each chunk
+    n_steps = 100
+    chunk_ms = []
+    scan = train_surface.train_steps_scan
+
+    def timed_scan(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = scan(*args, **kw)
+        end.record()
+        chunk_ms.append((start, end, kw["K"]))
+        return out
+
+    ck = f"{tmp}/train_ck"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    train_surface.train_steps_scan = timed_scan
+    t0 = time.perf_counter()
+    try:
+        state, tlog = train_surface.train_surfacenet(
+            sphere, cfg, n_steps=n_steps, checkpoint_dir=ck, log_every=1,
+            device=dev)
+    finally:
+        train_surface.train_steps_scan = scan
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_train = warp_gather.entry_launches["warp_gather_bf16"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm = [(a.elapsed_time(b), k) for a, b, k in chunk_ms[1:]]
+    ms_step = sum(t for t, _ in warm) / sum(k for _, k in warm)
+    losses = np.asarray(tlog.losses)
+    first, last = losses[:25].mean(), losses[-25:].mean()
+    train = {
+        "steps": n_steps, "batch": tc.batch_size, "chunk": tc.scan_chunk,
+        "chunk_ms": [a.elapsed_time(b) for a, b, _ in chunk_ms],
+        "warm_ms_per_step": ms_step, "steps_per_s": 1e3 / ms_step,
+        "cubes_per_s": tc.batch_size * 1e3 / ms_step, "wall_s": wall,
+        "peak_mem_gb": peak_gb, "gather_launches": launches_train,
+        "loss_first25": float(first), "loss_last25": float(last),
+        "loss_min": float(losses.min()), "loss_max": float(losses.max()),
+    }
+    log(f"training warm ms/step {ms_step:.3f}")
+    log(f"training steps/s {1e3 / ms_step:.3f}")
+    log(f"training cubes/s {tc.batch_size * 1e3 / ms_step:.2f}")
+    log(f"training peak memory {peak_gb:.3f} GB")
+    log(f"training gather launches {launches_train}")
+    log(f"training {json.dumps(train)}")
+    if len(losses) != n_steps or not np.isfinite(losses).all():
+        raise RuntimeError(f"training gave {len(losses)} losses, finite: "
+                           f"{np.isfinite(losses).all()}")
+    if not last < first:
+        raise RuntimeError(f"the loss did not fall: first 25 steps {first}, "
+                           f"last 25 {last}")
+    if launches_train != n_steps:
+        raise RuntimeError(f"the training path launched the gather "
+                           f"{launches_train} times in {n_steps} steps")
+
+    # where a warm step's device time goes: CUDA events between its parts
+    kw = dict(D=D, s=s)
+    marks = []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        o, p, lab = train_surface.sample_device_batch(
+            sampler, gen, batch=tc.batch_size, **kw)
+        ev[1].record()
+        x, valid = build_cvc_batch_cuda(images_g, Ps_d, p, o, **kw)
+        ev[2].record()
+        loss = class_balanced_bce(
+            state.model.train()(x, return_logits=True), lab, valid)
+        ev[3].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[4].record()
+        state.optimizer.step()
+        ev[5].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    parts = ("sample", "gather", "forward", "backward", "update")
+    split = {name: float(np.mean([m[i].elapsed_time(m[i + 1])
+                                  for m in marks[1:]]))
+             for i, name in enumerate(parts)}
+    log(f"training step split (ms) {json.dumps(split)}")
+    del state, x, valid, loss
+    torch.cuda.empty_cache()
+
+    # (c) the pool path through the CLI: the scan on disk, its GT points
+    reset_counts()
+    t0 = time.perf_counter()
+    pool_ck = f"{tmp}/pool_ck"
+    out = cli.main(["train", "--scan", scan_dir, "--gt", gt_ply,
+                    "--preset", "dtu9_full", "--steps", "25",
+                    "--checkpoint-dir", pool_ck, "--log-every", "5",
+                    "--set", "train.pool_size=64"])
+    torch.cuda.synchronize()
+    pool = {"wall_s": time.perf_counter() - t0, "steps": out[0].step,
+            "losses": out[1].losses,
+            "gather_launches": warp_gather.entry_launches["warp_gather_bf16"]}
+    log(f"cli train --scan --gt {json.dumps(pool)}")
+    if (out[0].step != 25 or not np.isfinite(out[1].losses).all()
+            or pool["gather_launches"] != 25
+            or not os.path.isfile(f"{pool_ck}/step_25/model.npz")):
+        raise RuntimeError("cli train on the scan did not write step_25")
+    del out
+
+    # (d) the trained checkpoint in cli reconstruct
+    t0 = time.perf_counter()
+    rec_ply = f"{tmp}/trained.ply"
+    n_rec, _, _ = cli.main([
+        "reconstruct", "--scan", scan_dir, "--out", rec_ply, "--preset",
+        "dtu9_full", "--checkpoint", f"{ck}/step_{n_steps}/model.npz",
+        "--set", "fusion.tau=0.5"])
+    pts, _ = read_ply(rec_ply)
+    log(f"reconstruct with the trained checkpoint: {n_rec} points in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if len(pts) != n_rec:
+        raise RuntimeError(f"reconstruct wrote {len(pts)} points, said "
+                           f"{n_rec}")
+    return {"training_launches": launches_train, "training_gather": gather,
+            "training": dict(train, step_split_ms=split,
+                             pool_path=pool, reconstruct_points=n_rec)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -499,7 +724,6 @@ def main() -> int:
         vorig[:, 1, None, None, None] + r[None, None, :, None],
         vorig[:, 2, None, None, None] + r[None, None, None, :],
     )
-    n_pixels = footprint_pixels(nu, nv, den, views, H, W)
     den = den + 1e-8
     grid = torch.stack([nu / den / (W - 1) * 2 - 1,
                         nv / den / (H - 1) * 2 - 1], dim=-1)
@@ -510,12 +734,8 @@ def main() -> int:
         imgs_items, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), iters=5, warmup=1)
     del imgs_items, grid
-    # the input the function needs: three channels of the pixels it reads
-    g_bytes = (n_pixels * 3 * images_g.element_size() + Ps_d.numel() * 4
-               + views.numel() * 4 + vorig.numel() * 4
-               + colors_k.numel() * 4 + valid_k.numel())
-    g_ops = n_items * D**3 * GATHER_OPS_ALL + n_valid * GATHER_OPS_VALID
-    g_bound, g_by = bound(g_bytes, g_ops)
+    g_bound, g_by, n_pixels = gather_bound(images_g, Ps_d, views, vorig, D,
+                                           s, n_valid)
     del colors_k, valid_k
 
     window = resolve_pool_window(cfg)
@@ -972,6 +1192,13 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
+    phase(15, "training at dtu9_full: the training gather, train_surfacenet "
+          "on the synthetic sphere, cli train --scan --gt, the checkpoint "
+          "in cli reconstruct")
+    t0 = time.perf_counter()
+    training = training_phase(dev, tmp.name, scan_dir, gt_ply)
+    log(f"training phase {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -980,7 +1207,7 @@ def main() -> int:
             "launches": launches["warp_gather"], "max_abs_err": g_err,
             "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
             "bound_by": g_by, "library_ms": g_lib,
-            "validity_agreement": agree, "items": n_items,
+            "validity_agreement": agree, "items": n_items, **training,
         },
         {
             "name": "affine_vote", "route": "cuda",
@@ -1041,7 +1268,7 @@ def main() -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(15, "result")
+    phase(16, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

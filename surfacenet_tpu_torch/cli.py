@@ -3,13 +3,19 @@
     python -m surfacenet_tpu_torch.cli reconstruct --scan DIR --out out.ply \
         [--preset dtu9_full | --config cfg.json] [--set voxel.cube_size=64] \
         [--checkpoint weights.npz] [--bbox x0,y0,z0,x1,y1,z1] [--device cuda]
+    python -m surfacenet_tpu_torch.cli train [--synthetic sphere|tori |
+        --scan DIR --gt gt.ply] [--steps N] [--checkpoint-dir DIR]
+        [--resume] [--preset dtu9_full] [--set train.batch_size=8]
     python -m surfacenet_tpu_torch.cli selftest [--scene sphere|tori]
     python -m surfacenet_tpu_torch.cli eval --pred out.ply --gt gt.ply \
         [--max-dist 20] [--protocol clamp|dtu] [--obs-mask m.npz] \
         [--plane a,b,c,d]
 
-``--checkpoint`` takes the ``.npz`` written by ``models/convert.py``;
-without it the photoconsistency predictor runs.  ``selftest`` sweeps a
+``--checkpoint`` takes the ``.npz`` written by ``models/convert.py`` or
+by ``train`` (``step_N/model.npz``); without it the photoconsistency
+predictor runs.  ``train`` trains SurfaceNet on a synthetic golden scene
+or a scan with its ground-truth ``.ply`` and writes ``step_N/``
+checkpoints.  ``selftest`` sweeps a
 synthetic golden scene with the photoconsistency predictor and scores it
 against the analytic surface; ``eval`` scores a predicted ``.ply`` against
 a ground-truth ``.ply``.  ``--device`` defaults to ``cuda`` and fails when
@@ -236,6 +242,62 @@ def cmd_reconstruct(args):
     return reconstruct_scan(scan, cfg, predictor, args.out, dev)
 
 
+def cmd_train(args):
+    """Train SurfaceNet (``train/train_surface.py``); returns (TrainState,
+    TrainLog), or None when ``--resume`` finds the run already done."""
+    import os
+
+    from surfacenet_tpu_torch.device import resolve_device
+    from surfacenet_tpu_torch.train.train_surface import (
+        restore_checkpoint, train_surfacenet,
+    )
+
+    if args.sharded or args.allow_unsharded:
+        raise NotImplementedError(
+            "train --sharded / --allow-unsharded: data-parallel training "
+            "over a mesh is not ported (ROADMAP A5, A6); the port trains on "
+            "one card")
+    dev = resolve_device(args.device)
+    cfg = _load_config(args)
+    if args.scan:
+        if not args.gt:
+            raise SystemExit("--scan training needs --gt pointing at the "
+                             "ground-truth point-cloud .ply")
+        from surfacenet_tpu_torch.data.dtu import load_scan
+        from surfacenet_tpu_torch.data.scene import PointCloudScene
+
+        scene = PointCloudScene.from_scan(
+            load_scan(args.scan, downsample=args.downsample), args.gt)
+    else:
+        from surfacenet_tpu_torch.data.synthetic import (
+            make_sphere_scene, make_tori_scene,
+        )
+
+        make = make_tori_scene if args.synthetic == "tori" else make_sphere_scene
+        scene = make(n_views=8, hw=(240, 320))
+    state, start_step = None, 0
+    if args.resume:
+        ck = args.checkpoint_dir
+        if os.path.isdir(ck) and any(d.startswith("step_")
+                                     for d in os.listdir(ck)):
+            state, start_step = restore_checkpoint(ck, cfg, device=dev)
+            print(f"resuming from step {start_step}")
+            if start_step >= args.steps:
+                print(f"checkpoint step {start_step} >= --steps "
+                      f"{args.steps}; nothing to do")
+                return None
+        else:
+            print(f"--resume: no step_* checkpoints in {ck}; starting fresh")
+    state, log = train_surfacenet(
+        scene, cfg, n_steps=args.steps, state=state,
+        checkpoint_dir=args.checkpoint_dir, log_every=args.log_every,
+        start_step=start_step, device=dev,
+    )
+    print(f"trained steps {start_step}..{args.steps}; loss "
+          f"{log.losses[0]:.4f} -> {log.losses[-1]:.4f}")
+    return state, log
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="surfacenet_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -251,6 +313,31 @@ def main(argv=None):
     pr.add_argument("--set", action="append")
     pr.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     pr.set_defaults(fn=cmd_reconstruct)
+
+    pt = sub.add_parser("train", help="train SurfaceNet")
+    pt.add_argument("--scan")
+    pt.add_argument("--gt", help="ground-truth point-cloud .ply for --scan")
+    pt.add_argument("--synthetic", choices=("sphere", "tori"),
+                    default="sphere",
+                    help="golden scene to train on when no --scan is given")
+    pt.add_argument("--sharded", action="store_true",
+                    help="not ported: raises (ROADMAP A5)")
+    pt.add_argument("--allow-unsharded", action="store_true",
+                    help="not ported: raises (ROADMAP A6)")
+    pt.add_argument("--downsample", type=int, default=1)
+    pt.add_argument("--steps", type=int, default=1000)
+    pt.add_argument("--checkpoint-dir", default="checkpoints")
+    pt.add_argument("--log-every", type=int, default=50)
+    pt.add_argument("--resume", action="store_true",
+                    help="continue from the latest step_* checkpoint in "
+                         "--checkpoint-dir (weights, optimizer state, step; "
+                         "the schedule and checkpoint numbers continue); "
+                         "starts fresh when there is none")
+    pt.add_argument("--preset")
+    pt.add_argument("--config")
+    pt.add_argument("--set", action="append")
+    pt.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    pt.set_defaults(fn=cmd_train)
 
     ps = sub.add_parser("selftest", help="synthetic golden-scene run")
     ps.add_argument("--scene", choices=("sphere", "tori"), default="sphere",

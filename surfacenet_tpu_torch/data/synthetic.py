@@ -40,6 +40,11 @@ class SyntheticScene:
             np.linalg.norm(pts - self.center, axis=-1) - self.radius
         )
 
+    def occupancy(self, centers: np.ndarray, s: float) -> np.ndarray:
+        """Training labels: a voxel centre within half a voxel diagonal
+        of the surface (the reference's voxelization rule)."""
+        return self.surface_distance(centers) <= (s * np.sqrt(3) / 2)
+
 
 def _texture(pts: np.ndarray, center: np.ndarray) -> np.ndarray:
     """High-frequency procedural RGB texture on the surface."""

@@ -12,7 +12,8 @@ By default the reference runs this network as one XLA program, not a
 Pallas kernel, so ``SurfaceNet`` runs it on PyTorch's convolutions (cuDNN
 on the card), in the config's compute dtype, with activations in
 ``channels_last_3d`` layout: the (B, D, D, D, C) input is that layout
-already, so no copy is made.
+already, so no copy is made.  Training (``train/train_surface.py``) runs
+the same module in ``train()`` mode on float32 master weights.
 
 With ``ModelConfig.fused_inference`` the predictor runs
 ``fused_infer_apply`` instead, the reference's inference forward with
@@ -34,8 +35,51 @@ from surfacenet_tpu_torch.ops.cuda.conv3d import CHANNEL_MULTIPLE, conv3d
 
 # flax.linen.BatchNorm's default epsilon, which the reference uses
 BN_EPS = 1e-5
+# the weight of a batch in the running statistics: flax's momentum 0.99
+BN_MOMENTUM = 0.01
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _conv(conv, x, dt):
+    """``conv`` in the compute dtype ``dt``: its weights are cast where
+    they are used (no copy when they are ``dt`` already), as flax's
+    ``param_dtype=float32, dtype=dt`` layers do."""
+    b = None if conv.bias is None else conv.bias.to(dt)
+    if isinstance(conv, nn.ConvTranspose3d):
+        return F.conv_transpose3d(x, conv.weight.to(dt), b, conv.stride,
+                                  conv.padding, conv.output_padding,
+                                  conv.groups, conv.dilation)
+    return F.conv3d(x, conv.weight.to(dt), b, conv.stride, conv.padding,
+                    conv.dilation, conv.groups)
+
+
+def _batchnorm(bn, x):
+    """BatchNorm as flax's ``nn.BatchNorm`` computes it.
+
+    In eval mode: the running statistics (``bn`` itself).  In training
+    mode: normalisation by the batch's statistics in float32 with the
+    float32 scale and shift, output in ``x``'s dtype, and the running
+    statistics updated as flax does, ``r = (1 - m) r + m batch`` with
+    ``m = bn.momentum`` (0.01, flax's momentum 0.99) and the *biased*
+    batch variance (``nn.BatchNorm3d``'s own update takes the unbiased
+    one).  The batch statistics are the ones the normalisation computed,
+    in float32: its mean and ``1 / sqrt(var + eps)``.
+    """
+    if isinstance(bn, nn.Identity) or not bn.training:
+        return bn(x)
+    y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None,
+                                              None, True, 0.0, bn.eps)
+    with torch.no_grad():
+        var = invstd.pow(-2) - bn.eps
+        for run, batch in ((bn.running_mean, mean), (bn.running_var, var)):
+            run.mul_(1.0 - bn.momentum).add_(batch, alpha=bn.momentum)
+    return y
+
+
+def _bn_layer(features: int, use_bn: bool):
+    return (nn.BatchNorm3d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+            if use_bn else nn.Identity())
 
 
 class ConvBlock(nn.Module):
@@ -51,14 +95,11 @@ class ConvBlock(nn.Module):
                 in_ch if i == 0 else features, features, 3,
                 padding=dilation, dilation=dilation, bias=not use_bn,
             ))
-            self.bns.append(
-                nn.BatchNorm3d(features, eps=BN_EPS) if use_bn
-                else nn.Identity()
-            )
+            self.bns.append(_bn_layer(features, use_bn))
 
-    def forward(self, x):
+    def forward(self, x, dt):
         for conv, bn in zip(self.convs, self.bns):
-            x = F.relu(bn(conv(x)), inplace=True)
+            x = F.relu(_batchnorm(bn, _conv(conv, x, dt)), inplace=True)
         return x
 
 
@@ -75,8 +116,7 @@ class SideLayer(nn.Module):
         super().__init__()
         self.upsample = upsample
         self.conv = nn.Conv3d(in_ch, features, 1, bias=not use_bn)
-        self.bn = (nn.BatchNorm3d(features, eps=BN_EPS) if use_bn
-                   else nn.Identity())
+        self.bn = _bn_layer(features, use_bn)
         self.deconv = None
         if upsample > 1 and upsample_mode == "deconv":
             self.deconv = nn.ConvTranspose3d(
@@ -86,11 +126,11 @@ class SideLayer(nn.Module):
         elif upsample_mode not in ("resize", "deconv"):
             raise ValueError(f"unknown upsample_mode {upsample_mode!r}")
 
-    def forward(self, x):
-        x = F.relu(self.bn(self.conv(x)), inplace=True)
+    def forward(self, x, dt):
+        x = F.relu(_batchnorm(self.bn, _conv(self.conv, x, dt)), inplace=True)
         if self.upsample > 1:
             if self.deconv is not None:
-                x = self.deconv(x)
+                x = _conv(self.deconv, x, dt)
             else:
                 x = F.interpolate(x, scale_factor=self.upsample,
                                   mode="trilinear", align_corners=False)
@@ -100,8 +140,12 @@ class SideLayer(nn.Module):
 class SurfaceNet(nn.Module):
     """(B, D, D, D, in_channels) CVC pair -> (B, D, D, D) float32 probability.
 
-    Runs in the dtype of its parameters (``make_predictor`` casts them to
-    ``cfg.dtype``); the output is always float32.
+    Computes in ``cfg.dtype``: parameters of another dtype are cast where
+    they are used, so float32 master weights train as the reference's
+    (``param_dtype=float32``), and ``make_predictor``'s copy, cast to
+    ``cfg.dtype`` once, runs without casts.  ``train()`` mode normalises
+    by batch statistics and updates the running ones (``_batchnorm``).
+    The output is always float32.
     """
 
     def __init__(self, cfg: ModelConfig = ModelConfig()):
@@ -135,18 +179,18 @@ class SurfaceNet(nn.Module):
         return scales
 
     def forward(self, x: torch.Tensor, return_logits: bool = False):
-        dt = self.head.weight.dtype
+        dt = DTYPES[self.cfg.dtype]
         # NDHWC memory viewed as NCDHW is exactly channels_last_3d
         h = x.to(dt).permute(0, 4, 1, 2, 3)
         sides = []
         for block, side, do_pool in zip(
             self.blocks, self.sides, self.cfg.pool_after_block
         ):
-            h = block(h)
-            sides.append(side(h))
+            h = block(h, dt)
+            sides.append(side(h, dt))
             if do_pool:
                 h = F.max_pool3d(h, 2, 2)
-        logits = self.head(torch.cat(sides, dim=1))[:, 0].float()
+        logits = _conv(self.head, torch.cat(sides, dim=1), dt)[:, 0].float()
         return logits if return_logits else torch.sigmoid(logits)
 
 

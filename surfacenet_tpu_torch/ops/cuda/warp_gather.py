@@ -22,7 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from surfacenet_tpu_torch.ops.cuda import _build
-from surfacenet_tpu_torch.ops.cvc import build_cvc_views
+from surfacenet_tpu_torch.ops.cvc import (
+    assemble_pairs, build_cvc_views, pair_views,
+)
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float,
@@ -122,3 +124,30 @@ def warp_gather(
 
 warp_gather.launches = 0
 warp_gather.entry_launches = dict.fromkeys(_ENTRY.values(), 0)
+
+
+def build_cvc_batch_cuda(
+    images: torch.Tensor,
+    Ps: torch.Tensor,
+    pair_idx: torch.Tensor,
+    origins: torch.Tensor,
+    *,
+    D: int,
+    s: float,
+    center_colors: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CVC pairs for training items through one ``warp_gather`` call.
+
+    Port of ``surfacenet_tpu/ops/pallas/warp_gather.py::
+    build_cvc_batch_pallas``: the 2B items ``[a0..aB, b0..bB]`` are
+    gathered at once, then centred and paired as
+    ``ops/cvc.py::build_cvc_batch`` does.  ``images`` is the run's one
+    gather copy (``pipeline/sweep.py::gather_images``; RGBx on the card, so
+    that no step pads it again).  2B stays within the kernel's 65535 items
+    a call (ROADMAP C5): training batches are tens of cubes.
+
+    Returns (x (B, D, D, D, 6) float32, valid (B, D, D, D) bool).
+    """
+    views, origins2 = pair_views(pair_idx, origins)
+    colors, valid = warp_gather(images, Ps, views, origins2, D=D, s=s)
+    return assemble_pairs(colors, valid, center_colors)

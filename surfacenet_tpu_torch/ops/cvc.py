@@ -181,3 +181,51 @@ def build_cvc_views(
                                W)
     valid = inside & (den > 0)
     return torch.where(valid[..., None], colors, 0.0), valid
+
+
+def pair_views(pair_idx: torch.Tensor, origins: torch.Tensor):
+    """The gather's items for a batch of CVC pairs: every pair's first
+    view, then every second view (``[a0..aB, b0..bB]``, the reference's
+    ``pair_idx.T.reshape(-1)``), as int32, with the origins doubled."""
+    views = pair_idx.t().reshape(-1).to(torch.int32).contiguous()
+    return views, torch.cat([origins, origins]).float().contiguous()
+
+
+def assemble_pairs(colors: torch.Tensor, valid: torch.Tensor,
+                   center_colors: bool = True):
+    """(2B, D, D, D, 3) single-view CVCs in ``pair_views`` order, zero
+    where invalid (as the gather returns them) -> (x (B, D, D, D, 6)
+    float32, valid (B, D, D, D)): each view centred over its valid voxels
+    if ``center_colors``, the two views side by side, valid where both
+    are."""
+    if center_colors:
+        colors = center_cvc(colors, valid)
+    B = colors.shape[0] // 2
+    return (torch.cat([colors[:B], colors[B:]], dim=-1),
+            valid[:B] & valid[B:])
+
+
+def build_cvc_batch(
+    images: torch.Tensor,
+    Ps: torch.Tensor,
+    pair_idx: torch.Tensor,
+    origins: torch.Tensor,
+    D: int,
+    s: float,
+    center_colors: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CVC pairs for (cube, view pair) training items: the plain version.
+
+    Port of the reference's ``ops/cvc.py::build_cvc_batch``; the kernel
+    route is ``ops/cuda/warp_gather.py::build_cvc_batch_cuda``.
+
+    Args:
+      images: (V, H, W, 3 or 4), as ``build_cvc_views`` takes them.
+      Ps: (V, 3, 4) float32; pair_idx: (B, 2) integer; origins: (B, 3).
+
+    Returns:
+      x (B, D, D, D, 6) float32; valid (B, D, D, D) bool.
+    """
+    views, origins2 = pair_views(pair_idx, origins)
+    colors, valid = build_cvc_views(images, Ps, views, origins2, D, s)
+    return assemble_pairs(colors, valid, center_colors)

@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from surfacenet_tpu_torch.config import ModelConfig
+from surfacenet_tpu_torch.config import (
+    Config, ModelConfig, VoxelConfig, baseline_config,
+)
 from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
 from surfacenet_tpu_torch.models.surfacenet import (
     fused_infer_apply, fused_params, init_surfacenet, make_predictor,
@@ -27,13 +29,16 @@ from surfacenet_tpu_torch.ops.cuda.affine_pool import (
 )
 from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_route, affine_vote
 from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
-from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
-from surfacenet_tpu_torch.ops.cvc import build_cvc_views
+from surfacenet_tpu_torch.ops.cuda.warp_gather import (
+    build_cvc_batch_cuda, warp_gather,
+)
+from surfacenet_tpu_torch.ops.cvc import build_cvc_batch, build_cvc_views
 from surfacenet_tpu_torch.ops.ray_pooling import (
     ray_max_mask_affine_batch, ray_max_mask_affine_plain,
     ray_vote_affine_plain, vote_params,
 )
 from surfacenet_tpu_torch.pipeline.sweep import gather_images
+from surfacenet_tpu_torch.train import train_surface
 
 torch.set_num_threads(2)
 
@@ -425,3 +430,89 @@ def test_affine_kernels_refuse_a_slope_above_one(cuda, kernel, window):
     assert run.returncode != 0
     assert "OUTPUT" not in run.stdout
     assert "CUDA" in run.stderr or "cuda" in run.stderr
+
+
+def test_training_gather_matches_plain_at_the_training_shape(cuda):
+    """``build_cvc_batch_cuda`` on one ``dtu9_full`` training batch of the
+    device sampler (32 pairs: 64 items of 64^3, 8 views of 240x320, bf16
+    RGBx images) against ``build_cvc_batch`` on the same images, with
+    chip_smoke.py's training gates: validity agreement >= 0.9999 and
+    |x diff| <= 2e-3 where both are valid (twice the gather's 1e-3:
+    centring subtracts two means that each carry it)."""
+    cfg = baseline_config("dtu9_full")
+    D, s = cfg.voxel.cube_size, cfg.voxel.voxel_size_mm
+    sphere = make_sphere_scene(n_views=8, hw=(240, 320))
+    sampler = train_surface.make_device_sampler(sphere, cfg, n_candidates=256,
+                                                device=cuda)
+    origins, pairs, _ = train_surface.sample_device_batch(
+        sampler, torch.Generator(cuda).manual_seed(0),
+        batch=cfg.train.batch_size, D=D, s=s)
+    images = train_surface.gather_copy(sphere.images, cfg, cuda)
+    assert images.dtype == torch.bfloat16
+    Ps = torch.as_tensor(sphere.Ps, dtype=torch.float32, device=cuda)
+    before = warp_gather.entry_launches["warp_gather_bf16"]
+    x_k, v_k = build_cvc_batch_cuda(images, Ps, pairs, origins, D=D, s=s)
+    assert warp_gather.entry_launches["warp_gather_bf16"] == before + 1
+    x_p, v_p = build_cvc_batch(images, Ps, pairs, origins, D, s)
+    torch.cuda.synchronize()
+    assert x_k.shape == (32, D, D, D, 6) and images.shape[-1] == 4
+    assert (v_k == v_p).float().mean().item() >= 0.9999
+    assert (x_k - x_p).abs()[v_k & v_p].max().item() <= 2e-3
+    assert v_k.float().mean().item() > 0.2
+
+
+def test_train_step_on_the_card(cuda):
+    """One ``train_step`` through the gather kernel, bf16 compute on
+    float32 master weights: a finite loss, every parameter moved, the
+    BatchNorm running statistics updated."""
+    cfg = baseline_config("dtu9_full")
+    cfg = cfg.replace(
+        voxel=dataclasses.replace(cfg.voxel, cube_size=32),
+        model=dataclasses.replace(ModelConfig.tiny(), dtype="bfloat16"),
+        train=dataclasses.replace(cfg.train, batch_size=4))
+    D, s = cfg.voxel.cube_size, cfg.voxel.voxel_size_mm
+    sphere = make_sphere_scene(n_views=8, hw=(240, 320))
+    sampler = train_surface.make_device_sampler(sphere, cfg, n_candidates=64,
+                                                device=cuda)
+    origins, pairs, labels = train_surface.sample_device_batch(
+        sampler, torch.Generator(cuda).manual_seed(1), batch=4, D=D, s=s)
+    state = train_surface.create_train_state(cfg, device=cuda)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    launches = warp_gather.launches
+    loss = train_surface.train_step(
+        state, train_surface.gather_copy(sphere.images, cfg, cuda),
+        torch.as_tensor(sphere.Ps, dtype=torch.float32, device=cuda),
+        origins, pairs, labels, D=D, s=s, balanced=True, center_colors=True)
+    assert np.isfinite(loss.item()) and state.step == 1
+    assert warp_gather.launches == launches + 1
+    after = state.model.state_dict()
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    moved = [k for k, p in state.model.named_parameters()
+             if not torch.equal(p, before[k])]
+    assert len(moved) == len(list(state.model.parameters()))
+    assert not torch.equal(after["blocks.0.bns.0.running_mean"],
+                           before["blocks.0.bns.0.running_mean"])
+
+
+def test_training_without_the_preset_gathers_through_the_kernel(cuda):
+    """``Config()`` leaves ``sweep.use_pallas_gather`` off: training on the
+    card still gathers through the kernel, on float32 RGBx images (its
+    f32 entry), once a step on the scan path and the host loop."""
+    cfg = Config(voxel=VoxelConfig(voxel_size_mm=2.0, cube_size=16,
+                                   overlap=4),
+                 model=dataclasses.replace(ModelConfig.tiny(),
+                                           dtype="float32"))
+    assert not cfg.sweep.use_pallas_gather
+    sphere = make_sphere_scene(n_views=4, hw=(90, 120))
+    images = train_surface.gather_copy(sphere.images, cfg, cuda)
+    assert images.dtype == torch.float32 and images.shape[-1] == 4
+    for chunk in (3, 0):
+        tc = dataclasses.replace(cfg.train, batch_size=4, scan_chunk=chunk)
+        before = dict(warp_gather.entry_launches)
+        state, log = train_surface.train_surfacenet(
+            sphere, cfg.replace(train=tc), n_steps=6, device=cuda)
+        assert state.step == 6 and np.isfinite(log.losses).all()
+        launched = {k: v - before[k]
+                    for k, v in warp_gather.entry_launches.items()}
+        assert launched == {"warp_gather_bf16": 0, "warp_gather_f32": 6,
+                            "warp_gather_int8": 0}, (chunk, launched)
