@@ -89,7 +89,8 @@ the run with a non-zero exit code and no result line):
       240x320) through ``build_cvc_batch_cuda`` (64 gather items, the bf16
       entry once) against ``build_cvc_batch`` on the same bf16 images:
       validity agreement >= 0.9999 and |x diff| <= 2e-3 where both are
-      valid; its time beside its bound; (b) ``train_surfacenet`` on that
+      valid; its time beside its bound and ``F.grid_sample``'s on the same
+      projected points; (b) ``train_surfacenet`` on that
       sphere, 100 steps on the scan path (4 chunks of 25): warm ms per step
       from CUDA events around chunks 2-4, steps/s, cubes/s, peak memory and
       the gather's launches (one a step), each on its own line; fails
@@ -102,7 +103,26 @@ the run with a non-zero exit code and no result line):
       (b)'s ``step_100/model.npz`` on that scan (``fusion.tau=0.5``, as
       phase 10): must write its ``.ply`` (the point count is reported, not
       gated);
-  16. the result line.
+  16. the occlusion-robust path at ``dtu9_full``: (a) ``cli.main(["train-
+      pairnet", "--preset", "dtu9_full", "--steps", "200"])`` on the
+      synthetic sphere (8 views of 240x320, batch 32, patch 32): ms per
+      step, host sampling (``sample_triplets``, host clock) and device time
+      (CUDA events around each ``pair_train_step``); fails unless every
+      loss is finite, the last 50 average below the first 50, and
+      ``pairnet_200.npz`` was written; (b) ``select_pairs_learned_local``
+      with ``weights_torch/pairnet_10000.npz`` on the occluded golden scene
+      (12 views of 600x800, radius 30) at the preset's cubes, on the card
+      and on the CPU: the fraction of cubes with identical pairs (fails
+      below 0.99), the largest gate difference, the crop origins that
+      differ, and the selector's wall time on each; (c) ``reconstruct_scan``
+      on that scene with the preset and the photoconsistency predictor,
+      three times: geometric pairs, the pair net
+      (``cli.make_pair_selector``, as ``reconstruct --pairnet``), and the
+      pair net with ``fusion_mode="consensus"``; fails unless each run
+      launched the gather and the vote (all on the ``tile`` route) and
+      wrote finite points; accuracy and completeness against the analytic
+      sphere are reported, not gated; stage times beside phase 5's;
+  17. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  Writes only to a temporary directory and to the
@@ -125,7 +145,9 @@ from surfacenet_tpu_torch import cli
 from surfacenet_tpu_torch.cli import reconstruct_scan
 from surfacenet_tpu_torch.config import baseline_config
 from surfacenet_tpu_torch.data.dtu import Scan, load_scan, write_scan
-from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
+from surfacenet_tpu_torch.data.synthetic import (
+    make_occluded_scene, make_sphere_scene,
+)
 from surfacenet_tpu_torch.geometry.camera import project_rows
 from surfacenet_tpu_torch.models.convert import save_npz
 from surfacenet_tpu_torch.models.surfacenet import (
@@ -151,14 +173,26 @@ from surfacenet_tpu_torch.ops.ray_pooling import (
     item_params, ray_max_mask_affine_batch, ray_max_mask_affine_plain,
     ray_vote_affine_plain, vote_params,
 )
-from surfacenet_tpu_torch.pipeline.sweep import (
-    cube_batch_step, gather_images, photoconsistency_predictor, plan_sweep,
-    pool_views_for, resolve_pool_window,
+from surfacenet_tpu_torch.ops.view_pairs import (
+    consensus_gates, crop_centers, cube_view_consensus,
+    select_pairs_learned_local,
 )
-from surfacenet_tpu_torch.train import train_surface
+from surfacenet_tpu_torch.pipeline.sweep import (
+    cube_batch_step, enumerate_cubes, gather_images,
+    photoconsistency_predictor, plan_sweep, pool_views_for, prefilter_cubes,
+    resolve_pool_window,
+)
+from surfacenet_tpu_torch.train import train_pair, train_surface
+from surfacenet_tpu_torch.train.train_pair import restore_pairnet
 from surfacenet_tpu_torch.train.losses import class_balanced_bce
-from surfacenet_tpu_torch.utils.metrics import voxel_set_agreement
+from surfacenet_tpu_torch.utils.metrics import (
+    accuracy_completeness, voxel_set_agreement,
+)
 from surfacenet_tpu_torch.utils.ply import read_ply, write_ply
+
+# the shipped pair net, converted (models/convert.py)
+PAIRNET = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "weights_torch", "pairnet_10000.npz")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32
 # operations/s outside the tensor cores, bf16 tensor-core FLOP/s
@@ -272,6 +306,30 @@ def gather_bound(images_g, Ps_d, views, vorig, D, s, n_valid):
                + n_items * D**3 * (3 * 4 + 1))
     n_ops = n_items * D**3 * GATHER_OPS_ALL + n_valid * GATHER_OPS_VALID
     return bound(n_bytes, n_ops) + (n_pixels,)
+
+
+def grid_sample_ms(images_g, Ps_d, views, vorig, D, s):
+    """Device ms of ``F.grid_sample`` (float32, bilinear, zeros outside)
+    at the gather's own projected points: bilinear sampling alone, the
+    library yardstick of the gather (timed only)."""
+    n_items = views.shape[0]
+    H, W = images_g.shape[1], images_g.shape[2]
+    r = (torch.arange(D, dtype=torch.float32, device=vorig.device) + 0.5) * s
+    nu, nv, den = project_rows(
+        Ps_d[views.long()].reshape(n_items, 1, 1, 3, 4),
+        vorig[:, 0, None, None, None] + r[None, :, None, None],
+        vorig[:, 1, None, None, None] + r[None, None, :, None],
+        vorig[:, 2, None, None, None] + r[None, None, None, :],
+    )
+    den = den + 1e-8
+    grid = torch.stack([nu / den / (W - 1) * 2 - 1,
+                        nv / den / (H - 1) * 2 - 1], dim=-1)
+    grid = grid.reshape(n_items, -1, 1, 2)
+    del nu, nv, den
+    imgs_items = images_g[..., :3].float().permute(0, 3, 1, 2)[views.long()]
+    return cuda_ms(lambda: F.grid_sample(
+        imgs_items, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), iters=5, warmup=1)
 
 
 def reset_counts():
@@ -460,10 +518,11 @@ def training_phase(dev, tmp, scan_dir, gt_ply):
                                            D, s), iters=3, warmup=1)
     k_bound, k_by, _ = gather_bound(images_g, Ps_d, views, vorig, D, s,
                                     n_valid)
+    k_lib = grid_sample_ms(images_g, Ps_d, views, vorig, D, s)
     gather = {"items": views.shape[0], "validity_agreement": agree,
               "max_abs_err": err, "kernel_ms": k_ms,
               "bound_ms": k_bound, "bound_by": k_by, "batch_ms": b_ms,
-              "batch_plain_ms": p_ms}
+              "batch_plain_ms": p_ms, "library_ms": k_lib}
     log(f"training gather {json.dumps(gather)}")
     del x_k, v_k
 
@@ -593,6 +652,163 @@ def training_phase(dev, tmp, scan_dir, gt_ply):
                              pool_path=pool, reconstruct_points=n_rec)}
 
 
+def occlusion_phase(dev, tmp, main_sweep):
+    """Phase 16: the occlusion-robust path at ``dtu9_full``: (a) ``cli
+    train-pairnet``, (b) the learned-local selector with the shipped pair
+    net on the card against the CPU, (c) ``reconstruct_scan`` on the
+    occluded golden scene with geometric pairs, ``--pairnet`` and
+    ``--pairnet`` with consensus fusion.  ``main_sweep`` holds phase 4's
+    and phase 5's stage times (the same preset on the clean sphere; phase 5
+    with the same predictor).  Returns
+    the phase's readings and the kernels' launches on (c)'s runs."""
+    cfg = baseline_config("dtu9_full")
+
+    # (a) cli train-pairnet at the preset's widths, 200 steps, batch 32;
+    # host sampling timed by the host clock, each step by CUDA events
+    n_steps = 200
+    host_s, step_ev = [], []
+    sample, step = train_pair.sample_triplets, train_pair.pair_train_step
+
+    def timed_sample(*args, **kw):
+        t0 = time.perf_counter()
+        out = sample(*args, **kw)
+        host_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_step(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = step(*args, **kw)
+        ev[1].record()
+        step_ev.append(ev)
+        return out
+
+    reset_counts()
+    train_pair.sample_triplets = timed_sample
+    train_pair.pair_train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        _, losses = cli.main(["train-pairnet", "--preset", "dtu9_full",
+                              "--steps", str(n_steps), "--checkpoint-dir",
+                              f"{tmp}/pair_ck"])
+    finally:
+        train_pair.sample_triplets = sample
+        train_pair.pair_train_step = step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = np.asarray(losses)
+    dev_ms = [a.elapsed_time(b) for a, b in step_ev]
+    pair_train = {
+        "steps": n_steps, "batch": cfg.train.batch_size,
+        "patch": cfg.pairnet.patch_size, "wall_s": wall,
+        "ms_per_step": wall * 1e3 / n_steps,
+        "host_sampling_ms": 1e3 * float(np.mean(host_s)),
+        "device_step_ms": float(np.mean(dev_ms[1:])),
+        "first_step_ms": dev_ms[0],
+        "loss_first50": float(losses[:50].mean()),
+        "loss_last50": float(losses[-50:].mean()),
+        "kernel_launches": warp_gather.launches + affine_vote.launches,
+    }
+    log(f"train-pairnet {json.dumps(pair_train)}")
+    if len(losses) != n_steps or not np.isfinite(losses).all():
+        raise RuntimeError("train-pairnet gave non-finite losses")
+    if not pair_train["loss_last50"] < pair_train["loss_first50"]:
+        raise RuntimeError("the pair net's loss did not fall")
+    if not os.path.isfile(f"{tmp}/pair_ck/pairnet_{n_steps}.npz"):
+        raise RuntimeError("train-pairnet wrote no checkpoint")
+
+    # (b) the learned-local selector on the occluded golden scene of
+    # results/occlusion_r05.json (12 views of 600x800, radius 30), at the
+    # preset's cubes, on the card and on the CPU
+    t0 = time.perf_counter()
+    occ = make_occluded_scene(n_views=12, hw=(600, 800), radius=30.0)
+    scene_s = time.perf_counter() - t0
+    hw = occ.images.shape[1:3]
+    ext = cfg.voxel.cube_extent_mm
+    _, origins = enumerate_cubes(occ.bbox_min, occ.bbox_max, cfg)
+    origins = origins[prefilter_cubes(occ.Ps, origins, hw, cfg, dev)]
+    centers = origins + ext / 2.0
+    nets = {d: restore_pairnet(PAIRNET, cfg.pairnet).to(d)
+            for d in (dev, "cpu")}
+    sel, secs, gates, crops = {}, {}, {}, {}
+    for d in (dev, "cpu"):
+        select_pairs_learned_local(occ.Ps, origins[:2], 5, hw, ext,
+                                   occ.images, nets[d], 32, device=d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sel[d] = select_pairs_learned_local(
+            occ.Ps, origins, cfg.fusion.n_view_pairs, hw, ext, occ.images,
+            nets[d], cfg.pairnet.patch_size, device=d)
+        torch.cuda.synchronize()
+        secs[d] = time.perf_counter() - t0
+        gates[d] = consensus_gates(*cube_view_consensus(
+            occ.images, occ.Ps, centers, nets[d], cfg.pairnet.patch_size,
+            device=d))
+        crops[d] = torch.round(crop_centers(
+            occ.Ps, centers, hw, cfg.pairnet.patch_size, d)[0]).cpu()
+    same = (sel[dev][0] == sel["cpu"][0]).all(axis=(1, 2))
+    selection = {
+        "cubes": len(origins), "views": 12,
+        "identical_pairs_frac": float(same.mean()),
+        "max_gate_diff": float(np.abs(gates[dev] - gates["cpu"]).max()),
+        "max_weight_diff": float(np.abs(sel[dev][1] - sel["cpu"][1]).max()),
+        "crop_origins_differing": int(
+            (crops[dev] != crops["cpu"]).any(dim=-1).sum()),
+        "gated_views": int((gates[dev] < 1).sum()),
+        "card_s": secs[dev], "cpu_s": secs["cpu"], "scene_s": scene_s,
+    }
+    log(f"learned selection card vs CPU {json.dumps(selection)}")
+    if selection["identical_pairs_frac"] < 0.99:
+        raise RuntimeError("the learned selector's pairs on the card differ "
+                           "from the CPU's in more than 1% of cubes")
+
+    # (c) the path: reconstruct_scan on the occluded scene, geometric pairs,
+    # --pairnet, and --pairnet with consensus fusion
+    scan = Scan(occ.images, occ.Ps, occ.bbox_min, occ.bbox_max, "occluded")
+    gt = occ.surface_points(20000)
+    consensus = cfg.replace(fusion=dataclasses.replace(
+        cfg.fusion, fusion_mode="consensus"))
+    runs = []
+    for name, c, pairnet in (("geometric", cfg, None),
+                             ("pairnet", cfg, PAIRNET),
+                             ("pairnet_consensus", consensus, PAIRNET)):
+        reset_counts()
+        t0 = time.perf_counter()
+        selector = cli.make_pair_selector(pairnet, c, occ.images, dev)
+        n, st, timings = reconstruct_scan(scan, c, photoconsistency_predictor,
+                                          f"{tmp}/occ_{name}.ply", dev,
+                                          selector)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"warp_gather": warp_gather.launches,
+                    "affine_vote": affine_vote.launches,
+                    "affine_vote_routes": dict(affine_vote.route_launches)}
+        pts, _ = read_ply(f"{tmp}/occ_{name}.ply")
+        acc, comp = (accuracy_completeness(pts, gt, device=dev) if len(pts)
+                     else (float("nan"), float("nan")))
+        run = {"run": name, "points": n, "acc_mm": acc, "comp_mm": comp,
+               "overall_mm": 0.5 * (acc + comp), "wall_s": wall,
+               "stages": timings, "batches": st.n_batches,
+               "cubes": st.n_cubes_after_prefilter,
+               "cubes_per_s": st.n_cubes_after_prefilter / st.sweep_s,
+               "launches": launches}
+        runs.append(run)
+        log(f"occluded scene {json.dumps(run)}")
+        if (launches["warp_gather"] <= 0 or launches["affine_vote"] <= 0
+                or launches["affine_vote_routes"]["tile"]
+                != launches["affine_vote"]):
+            raise RuntimeError(f"{name}: the path did not launch the gather "
+                               f"and the vote on its tile route: {launches}")
+        if n <= 0 or len(pts) != n or not np.isfinite(pts).all():
+            raise RuntimeError(f"{name}: wrote {n} points ({len(pts)} read)")
+    log(f"stage times beside phases 4 and 5 (clean sphere, same preset): "
+        f"{json.dumps(main_sweep)}; the selector's wall "
+        f"{secs[dev]:.3f} s beside the pairnet run's sweep stage "
+        f"{runs[1]['stages']['sweep_s']:.3f} s")
+    return {"pair_train": pair_train, "selection": selection,
+            "runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -714,26 +930,7 @@ def main() -> int:
                                        D=D, s=s), iters=20)
     g_plain = cuda_ms(lambda: build_cvc_views(images_g, Ps_d, views, vorig,
                                               D, s), iters=3, warmup=1)
-    # library yardstick: bilinear sampling alone, at the same points
-    P = Ps_d[views.long()]
-    H, W = images_g.shape[1], images_g.shape[2]
-    r = (torch.arange(D, dtype=torch.float32, device=dev) + 0.5) * s
-    nu, nv, den = project_rows(
-        P.reshape(n_items, 1, 1, 3, 4),
-        vorig[:, 0, None, None, None] + r[None, :, None, None],
-        vorig[:, 1, None, None, None] + r[None, None, :, None],
-        vorig[:, 2, None, None, None] + r[None, None, None, :],
-    )
-    den = den + 1e-8
-    grid = torch.stack([nu / den / (W - 1) * 2 - 1,
-                        nv / den / (H - 1) * 2 - 1], dim=-1)
-    grid = grid.reshape(n_items, -1, 1, 2)
-    del nu, nv, den
-    imgs_items = images_g[..., :3].float().permute(0, 3, 1, 2)[views.long()]
-    g_lib = cuda_ms(lambda: F.grid_sample(
-        imgs_items, grid, mode="bilinear", padding_mode="zeros",
-        align_corners=True), iters=5, warmup=1)
-    del imgs_items, grid
+    g_lib = grid_sample_ms(images_g, Ps_d, views, vorig, D, s)
     g_bound, g_by, n_pixels = gather_bound(images_g, Ps_d, views, vorig, D,
                                            s, n_valid)
     del colors_k, valid_k
@@ -1199,6 +1396,17 @@ def main() -> int:
     training = training_phase(dev, tmp.name, scan_dir, gt_ply)
     log(f"training phase {time.perf_counter() - t0:.1f} s")
 
+    phase(16, "the occlusion-robust path at dtu9_full: cli train-pairnet, "
+          "the learned-local selector card vs CPU, reconstruct_scan on the "
+          "occluded scene (geometric, --pairnet, --pairnet + consensus)")
+    t0 = time.perf_counter()
+    occlusion = occlusion_phase(dev, tmp.name, {
+        "phase4_stages": timings, "phase5_stages": timings_pc,
+        "phase5_cubes_per_s":
+            stats_pc.n_cubes_after_prefilter / stats_pc.sweep_s})
+    occ_launches = {r["run"]: r["launches"] for r in occlusion["runs"]}
+    log(f"occlusion phase {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -1208,6 +1416,9 @@ def main() -> int:
             "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
             "bound_by": g_by, "library_ms": g_lib,
             "validity_agreement": agree, "items": n_items, **training,
+            "occlusion_path_launches": {
+                k: v["warp_gather"] for k, v in occ_launches.items()},
+            "occlusion": occlusion,
         },
         {
             "name": "affine_vote", "route": "cuda",
@@ -1221,6 +1432,8 @@ def main() -> int:
             "window": window, "route_launches": vote_routes,
             "window0_ms": vote_runs[1]["ms"], "windows": vote_runs,
             "cubes": B,
+            "occlusion_path_launches": {
+                k: v["affine_vote"] for k, v in occ_launches.items()},
         },
         {
             "name": "conv3d", "route": "cuda",
@@ -1268,7 +1481,7 @@ def main() -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(16, "result")
+    phase(17, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,13 @@
 
     python -m surfacenet_tpu_torch.cli reconstruct --scan DIR --out out.ply \
         [--preset dtu9_full | --config cfg.json] [--set voxel.cube_size=64] \
-        [--checkpoint weights.npz] [--bbox x0,y0,z0,x1,y1,z1] [--device cuda]
+        [--checkpoint weights.npz] [--pairnet pairnet.npz] \
+        [--bbox x0,y0,z0,x1,y1,z1] [--device cuda]
     python -m surfacenet_tpu_torch.cli train [--synthetic sphere|tori |
         --scan DIR --gt gt.ply] [--steps N] [--checkpoint-dir DIR]
         [--resume] [--preset dtu9_full] [--set train.batch_size=8]
+    python -m surfacenet_tpu_torch.cli train-pairnet [--scan DIR --gt gt.ply]
+        [--steps N] [--lr 1e-3] [--checkpoint-dir DIR] [--preset dtu9_full]
     python -m surfacenet_tpu_torch.cli selftest [--scene sphere|tori]
     python -m surfacenet_tpu_torch.cli eval --pred out.ply --gt gt.ply \
         [--max-dist 20] [--protocol clamp|dtu] [--obs-mask m.npz] \
@@ -13,9 +16,15 @@
 
 ``--checkpoint`` takes the ``.npz`` written by ``models/convert.py`` or
 by ``train`` (``step_N/model.npz``); without it the photoconsistency
-predictor runs.  ``train`` trains SurfaceNet on a synthetic golden scene
-or a scan with its ground-truth ``.ply`` and writes ``step_N/``
-checkpoints.  ``selftest`` sweeps a
+predictor runs.  ``--pairnet`` takes a pair-net ``.npz``
+(``weights_torch/pairnet_10000.npz``, or ``train-pairnet``'s
+``pairnet_N.npz``, or a directory of those: the highest step) and selects
+each cube's pairs with the cube-local learned selector; without it the
+geometric selector runs.  ``train`` trains SurfaceNet on a synthetic golden
+scene or a scan with its ground-truth ``.ply`` and writes ``step_N/``
+checkpoints; ``train-pairnet`` triplet-trains the pair net on the
+synthetic sphere (8 views of 240x320) or a scan with its ground truth and
+writes ``pairnet_N.npz``.  ``selftest`` sweeps a
 synthetic golden scene with the photoconsistency predictor and scores it
 against the analytic surface; ``eval`` scores a predicted ``.ply`` against
 a ground-truth ``.ply``.  ``--device`` defaults to ``cuda`` and fails when
@@ -83,6 +92,30 @@ def _load_predictor(checkpoint, cfg, device):
     print(f"using weights {checkpoint}")
     return make_predictor(load_surfacenet(checkpoint, cfg.model), cfg.model,
                           device)
+
+
+def make_pair_selector(pairnet, cfg, images, device="cuda"):
+    """The cube-local learned pair selector with the pair net at
+    ``pairnet`` (``train/train_pair.py::restore_pairnet``), on ``images``
+    (V, H, W, 3); None without ``pairnet``.  A missing or mismatched file
+    raises."""
+    if not pairnet:
+        return None
+    import functools
+
+    from surfacenet_tpu_torch.device import resolve_device
+    from surfacenet_tpu_torch.ops.view_pairs import select_pairs_learned_local
+    from surfacenet_tpu_torch.train.train_pair import restore_pairnet
+
+    dev = resolve_device(device)
+    model = restore_pairnet(pairnet, cfg.pairnet).to(dev)
+    print(f"using learned pair selection with {pairnet}")
+    return functools.partial(
+        select_pairs_learned_local, n_pairs=cfg.fusion.n_view_pairs,
+        image_hw=tuple(np.asarray(images).shape[1:3]),
+        extent_mm=cfg.voxel.cube_extent_mm, images=images, model=model,
+        patch_size=cfg.pairnet.patch_size, device=dev,
+    )
 
 
 def selftest_setup(scene: str = "sphere"):
@@ -185,11 +218,13 @@ def cmd_eval(args):
             "n_pred_total": len(pred), "n_gt_total": len(gt)}
 
 
-def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda"):
+def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda",
+                     pair_selector=None):
     """Sweep a loaded scan and write the merged point cloud to ``out``.
 
     ``scan`` has images (V, H, W, 3), Ps (V, 3, 4) and bbox_min/bbox_max
-    (estimated from the cameras when None).  Returns (points written,
+    (estimated from the cameras when None); ``pair_selector`` as
+    ``run_sweep``'s (``make_pair_selector``).  Returns (points written,
     SweepStats, {stage: wall seconds}).
     """
     from surfacenet_tpu_torch.device import resolve_device
@@ -207,7 +242,8 @@ def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda"):
             f"{np.round(bbox_min, 1)} .. {np.round(bbox_max, 1)}"
         )
     store, stats = run_sweep(
-        scan.images, scan.Ps, bbox_min, bbox_max, cfg, predictor, device=dev,
+        scan.images, scan.Ps, bbox_min, bbox_max, cfg, predictor,
+        pair_selector, device=dev,
     )
     t0 = time.perf_counter()
     n = store.export_ply(out)
@@ -239,7 +275,8 @@ def cmd_reconstruct(args):
         scan.bbox_min = np.asarray(vals[:3])
         scan.bbox_max = np.asarray(vals[3:])
     predictor = _load_predictor(args.checkpoint, cfg, dev)
-    return reconstruct_scan(scan, cfg, predictor, args.out, dev)
+    selector = make_pair_selector(args.pairnet, cfg, scan.images, dev)
+    return reconstruct_scan(scan, cfg, predictor, args.out, dev, selector)
 
 
 def cmd_train(args):
@@ -298,6 +335,37 @@ def cmd_train(args):
     return state, log
 
 
+def cmd_train_pairnet(args):
+    """Triplet-train the pair net (``train/train_pair.py``) and write
+    ``<checkpoint-dir>/pairnet_<steps>.npz``; returns (PairNet, losses)."""
+    from surfacenet_tpu_torch.device import resolve_device
+    from surfacenet_tpu_torch.train.train_pair import (
+        save_pairnet, train_pairnet,
+    )
+
+    dev = resolve_device(args.device)
+    cfg = _load_config(args)
+    if args.scan:
+        if not args.gt:
+            raise SystemExit("--scan training needs --gt pointing at the "
+                             "ground-truth point-cloud .ply")
+        from surfacenet_tpu_torch.data.dtu import load_scan
+        from surfacenet_tpu_torch.data.scene import PointCloudScene
+
+        scene = PointCloudScene.from_scan(
+            load_scan(args.scan, downsample=args.downsample), args.gt)
+    else:
+        from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
+
+        scene = make_sphere_scene(n_views=8, hw=(240, 320))
+    model, losses = train_pairnet(scene, cfg, n_steps=args.steps, lr=args.lr,
+                                  device=dev)
+    path = save_pairnet(args.checkpoint_dir, model, step=args.steps)
+    print(f"trained pairnet {args.steps} steps; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; saved to {path}")
+    return model, losses
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="surfacenet_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -307,6 +375,10 @@ def main(argv=None):
     pr.add_argument("--bbox",
                     help="x0,y0,z0,x1,y1,z1 (mm); default: estimate from cameras")
     pr.add_argument("--checkpoint", help=".npz weights (models/convert.py)")
+    pr.add_argument("--pairnet",
+                    help="pair-net .npz (or a directory of pairnet_N.npz) "
+                         "-> cube-local learned pair selection (default: "
+                         "the geometric selector)")
     pr.add_argument("--downsample", type=int, default=1)
     pr.add_argument("--preset")
     pr.add_argument("--config")
@@ -338,6 +410,20 @@ def main(argv=None):
     pt.add_argument("--set", action="append")
     pt.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     pt.set_defaults(fn=cmd_train)
+
+    pp = sub.add_parser("train-pairnet",
+                        help="triplet-train the view-pair weighting net")
+    pp.add_argument("--scan")
+    pp.add_argument("--gt", help="ground-truth point-cloud .ply for --scan")
+    pp.add_argument("--downsample", type=int, default=1)
+    pp.add_argument("--steps", type=int, default=2000)
+    pp.add_argument("--lr", type=float, default=1e-3)
+    pp.add_argument("--checkpoint-dir", default="checkpoints")
+    pp.add_argument("--preset")
+    pp.add_argument("--config")
+    pp.add_argument("--set", action="append")
+    pp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    pp.set_defaults(fn=cmd_train_pairnet)
 
     ps = sub.add_parser("selftest", help="synthetic golden-scene run")
     ps.add_argument("--scene", choices=("sphere", "tori"), default="sphere",

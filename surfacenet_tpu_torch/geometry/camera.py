@@ -53,6 +53,38 @@ def project(P: torch.Tensor, pts: torch.Tensor, eps: float = 1e-8):
     return torch.stack([nu / d, nv / d], dim=-1), w
 
 
+def project_crop(P: torch.Tensor, pts: torch.Tensor, eps: float = 1e-8):
+    """``project`` in float32 with the JAX package's rounding on the CPU,
+    for the pair net's patch crops, which round uv to whole pixels (a
+    last-bit difference moves a crop by a pixel at a .5 boundary).
+
+    ``P`` (N, 3, 4) with one point each, ``pts`` (N, 3); or ``P`` (3, 4)
+    with ``pts`` (N, 3).  XLA's CPU dot sums the first form, and the
+    second below 8 points, as ``p0 x`` then fused multiply-adds of ``p1 y``
+    and ``p2 z`` (here a float64 product and sum rounded once), then
+    ``+ p3``; the second form at 8 points or more as
+    ``(p0 x + p1 y) + (p2 z + p3)``.  Division is through the reference's
+    Newton-refined reciprocal.  Returns uv (N, 2) and depth w (N,).
+    """
+    batched = P.dim() == 3
+    Pb = P if batched else P[None]
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    rows = []
+    for r in range(3):
+        p0, p1, p2, p3 = (Pb[:, r, c] for c in range(4))
+        if batched or pts.shape[0] < 8:
+            acc = p0 * x
+            acc = (p1.double() * y.double() + acc.double()).float()
+            acc = (p2.double() * z.double() + acc.double()).float()
+            rows.append(acc + p3)
+        else:
+            rows.append((p0 * x + p1 * y) + (p2 * z + p3))
+    d = rows[2] + eps
+    inv = 1.0 / d
+    inv = inv * (2.0 - d * inv)
+    return torch.stack([rows[0] * inv, rows[1] * inv], dim=-1), rows[2]
+
+
 def camera_center(P: torch.Tensor) -> torch.Tensor:
     """Camera centre C = -M^{-1} p4 of P = [M | p4].  (..., 3, 4) -> (..., 3)."""
     M = P[..., :, :3]

@@ -169,7 +169,7 @@ def _remove_rigid(dx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return r - torch.linalg.cross(omega.expand_as(xc), xc)
 
 
-class _Adam:
+class OptaxAdam:
     """``optax.adam``: b1 0.9, b2 0.999, eps 1e-8 (outside the root),
     bias-corrected moments, update ``p -= lr * m_hat / (sqrt(v_hat) + eps)``.
     Each moment update keeps optax's operation order,
@@ -263,7 +263,7 @@ def refine_calibration(
         """One Adam phase optimizing only ``which`` (alternating, as the
         reference does: the joint problem has a near-null-space)."""
         param = dx if which == "dx" else duv
-        opt = _Adam(param, lr)
+        opt = OptaxAdam(param, lr)
         losses = []
         for _ in range(n_steps):
             param.requires_grad_(True)

@@ -1,4 +1,5 @@
-"""SurfaceNet weights between the JAX (flax) layout and this port.
+"""SurfaceNet and pair-net weights between the JAX (flax) layout and this
+port.
 
 ``params_from_jax`` maps the reference's variables, given as nested dicts
 of numpy arrays (``{"params": ..., "batch_stats": ...}``), to a
@@ -17,6 +18,15 @@ format ``cli reconstruct --checkpoint`` reads.  Reading the reference's
 Orbax checkpoints needs the JAX stack, so the conversion runs where JAX is
 installed: load with ``surfacenet_tpu.train.train_surface.load_pretrained``,
 map the leaves to numpy, then ``save_npz(params_from_jax(v), path)``.
+
+``pairnet_params_from_jax`` does the same for the pair net
+(``models/pairnet.py``): ``Conv`` kernels from HWIO to OIHW, not flipped
+(both frameworks correlate), and the ``Dense`` kernel transposed; its rows
+stay in the reference's (H, W, C) flatten order, which ``PairNet`` keeps.
+``weights_torch/pairnet_10000.npz`` is the shipped ``weights/pairnet_10000``
+converted so: ``restore_pairnet`` of ``surfacenet_tpu.train.train_pair``
+with the default ``Config()``, leaves to numpy, then
+``save_npz(pairnet_params_from_jax(v), path)``.
 """
 
 from __future__ import annotations
@@ -84,6 +94,24 @@ def params_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
             out[f"sides.{b}.deconv.weight"] = _deconv(ct["kernel"])
             out[f"sides.{b}.deconv.bias"] = _t(ct["bias"])
     _conv_into(out, "head.", params["Conv_0"])
+    return out
+
+
+def pairnet_params_from_jax(variables: dict) -> Dict[str, torch.Tensor]:
+    """flax PairNet variables (numpy leaves) -> ``PairNet`` ``state_dict``."""
+    params = variables["params"]
+    out: Dict[str, torch.Tensor] = {}
+    n_convs = sum(1 for k in params if k.startswith("Conv_"))
+    for i in range(n_convs):
+        p = params[f"Conv_{i}"]
+        k = np.asarray(p["kernel"], np.float32)  # (kh, kw, in, out)
+        out[f"convs.{i}.weight"] = torch.from_numpy(
+            np.transpose(k, (3, 2, 0, 1)).copy())
+        out[f"convs.{i}.bias"] = _t(p["bias"])
+    d = params["Dense_0"]
+    out["dense.weight"] = torch.from_numpy(
+        np.asarray(d["kernel"], np.float32).T.copy())
+    out["dense.bias"] = _t(d["bias"])
     return out
 
 

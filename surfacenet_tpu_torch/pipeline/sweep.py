@@ -4,21 +4,21 @@ Port of the single-device branch of ``surfacenet_tpu/pipeline/sweep.py``
 that the production presets take:
 
   1. Host planning: optional calibration refinement, cube enumeration,
-     frustum prefilter, geometric pair selection, deduplicated view slots,
-     core bounds, padding to fixed-size batches.
+     frustum prefilter, pair selection (geometric, or a caller's selector
+     such as the learned ``ops/view_pairs.py::select_pairs_learned_local``),
+     deduplicated view slots, core bounds, padding to fixed-size batches.
   2. Per batch on the device (``cube_batch_step``): the warp gather once
      per (cube, distinct view) (CUDA kernel; float32, bfloat16 or int8
      images), colour centring and pair assembly, the SurfaceNet forward,
-     mean fusion, the ray-pooling vote (the affine vote kernel, or the
-     exact scatter-max raster), tau/gamma thresholds, core claiming,
-     best-pair colour and compact top-k records.
+     mean or consensus fusion, the ray-pooling vote (the affine vote
+     kernel, or the exact scatter-max raster), tau/gamma thresholds, core
+     claiming, best-pair colour and compact top-k records.
   3. Host harvest, pipelined three batches deep: unpack records, re-fetch
      truncated cubes dense, add to the ``SparseCubeStore``.
 
-Not ported yet (ROADMAP.md): the non-deduplicated gather, consensus
-fusion, the matmul ray-pool mode, the connected-component denoise
-(``fusion.min_component``), learned pair selection, the resume ledger and
-the sharded sweep.
+Not ported yet (ROADMAP.md): the non-deduplicated gather, the matmul
+ray-pool mode, the connected-component denoise (``fusion.min_component``),
+the resume ledger and the sharded sweep.
 """
 
 from __future__ import annotations
@@ -39,7 +39,9 @@ from surfacenet_tpu_torch.geometry.camera import cube_visible
 from surfacenet_tpu_torch.ops.cuda.affine_vote import ray_vote_affine
 from surfacenet_tpu_torch.ops.cuda.warp_gather import warp_gather
 from surfacenet_tpu_torch.ops.cvc import center_cvc, quantize_int8
-from surfacenet_tpu_torch.ops.fusion import adaptive_threshold, fuse_pairs
+from surfacenet_tpu_torch.ops.fusion import (
+    adaptive_threshold, fuse_pairs, fuse_pairs_consensus,
+)
 from surfacenet_tpu_torch.ops.ray_pooling import ray_pool
 from surfacenet_tpu_torch.ops.view_pairs import (
     dedup_view_slots, select_pairs_geometric,
@@ -108,6 +110,15 @@ def prefilter_cubes(Ps, origins, image_hw, cfg: Config, device="cuda"):
         image_hw,
     )
     return vis.sum(dim=-1).cpu().numpy() >= cfg.sweep.min_views_visible
+
+
+def resolve_fusion_mode(cfg: Config):
+    """``cube_batch_step``'s ``fusion_mode``: "mean", or ("consensus",
+    beta, deadband)."""
+    if cfg.fusion.fusion_mode == "consensus":
+        return ("consensus", float(cfg.fusion.consensus_beta),
+                float(cfg.fusion.consensus_deadband))
+    return cfg.fusion.fusion_mode
 
 
 def resolve_pool_window(cfg: Config) -> int:
@@ -192,6 +203,7 @@ def cube_batch_step(
     compact_k: int = 0,
     pool_window: int = 0,
     ray_pool_mode: str = "exact",
+    fusion_mode="mean",
 ):
     """One device step over a fixed-size batch of cubes.
 
@@ -202,7 +214,10 @@ def cube_batch_step(
     cube's first K distinct views; padded slots do not vote and do not count
     in the gamma denominator.  ``ray_pool_mode`` "affine" or
     "affine_pallas" votes with the affine vote kernel, "exact" with the
-    exact scatter-max raster (``ops/ray_pooling.py::ray_pool``).  Returns
+    exact scatter-max raster (``ops/ray_pooling.py::ray_pool``).
+    ``fusion_mode`` is "mean" (``fuse_pairs``) or ("consensus", beta,
+    deadband) (``fuse_pairs_consensus``; "consensus" alone takes its
+    defaults).  Returns
     (occupancy (Nc,D,D,D) bool, fused
     (Nc,D,D,D) f32, color (Nc,D,D,D,3) f32), or with ``compact_output``
     (records (Nc, K, 7) uint8, counts (Nc,) int32).
@@ -237,8 +252,15 @@ def cube_batch_step(
     del xs_u
 
     probs = predict(x, origins.repeat_interleave(n_pairs, dim=0))
-    fused = fuse_pairs(probs.float().reshape(Nc, n_pairs, D, D, D),
-                       pair_w, valid)
+    probs = probs.float().reshape(Nc, n_pairs, D, D, D)
+    fm = (fusion_mode,) if isinstance(fusion_mode, str) else fusion_mode
+    if fm[0] == "consensus":
+        kw = {}
+        if len(fm) > 1:
+            kw = dict(beta=float(fm[1]), deadband=float(fm[2]))
+        fused = fuse_pairs_consensus(probs, pair_w, valid, **kw)
+    else:
+        fused = fuse_pairs(probs, pair_w, valid)
     del x, probs, valid
 
     if adaptive:
@@ -392,8 +414,12 @@ class SweepPlan:
 
 
 def plan_sweep(Ps, bbox_min, bbox_max, image_hw, cfg: Config,
-               device) -> SweepPlan:
-    """Enumerate, prefilter, select pairs, dedup views, claim cores, pad."""
+               device, pair_selector: Optional[Callable] = None) -> SweepPlan:
+    """Enumerate, prefilter, select pairs, dedup views, claim cores, pad.
+
+    ``pair_selector`` (Ps, origins) -> (pair_idx (N, Nv, 2), pair_w (N, Nv))
+    picks each cube's pairs; by default the geometric selector.
+    """
     D = cfg.voxel.cube_size
     grid, origins = enumerate_cubes(bbox_min, bbox_max, cfg)
     n_total = len(origins)
@@ -407,11 +433,13 @@ def plan_sweep(Ps, bbox_min, bbox_max, image_hw, cfg: Config,
         return SweepPlan(grid, origins, np.zeros((0, 0), np.float32),
                          np.zeros((0, 1), np.int32), empty, None, 0, n_total,
                          pool_window)
-    pair_idx, pair_w = select_pairs_geometric(
-        Ps, origins, n_pairs=cfg.fusion.n_view_pairs, image_hw=image_hw,
-        extent_mm=cfg.voxel.cube_extent_mm,
-        dist_sigma_frac=cfg.fusion.pair_dist_sigma_frac, device=device,
-    )
+    if pair_selector is None:
+        pair_selector = functools.partial(
+            select_pairs_geometric, n_pairs=cfg.fusion.n_view_pairs,
+            image_hw=image_hw, extent_mm=cfg.voxel.cube_extent_mm,
+            dist_sigma_frac=cfg.fusion.pair_dist_sigma_frac, device=device,
+        )
+    pair_idx, pair_w = pair_selector(Ps, origins)
     pair_idx = np.asarray(pair_idx, np.int32)
     pair_w = np.asarray(pair_w, np.float32)
     uniq_views, slot_idx = dedup_view_slots(pair_idx)
@@ -479,9 +507,10 @@ def gather_images(images: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _check_supported(cfg: Config) -> None:
-    if cfg.fusion.fusion_mode != "mean":
+    if cfg.fusion.fusion_mode not in ("mean", "consensus"):
         raise NotImplementedError(
-            f"fusion_mode={cfg.fusion.fusion_mode!r} is not ported (mean only)"
+            f"fusion_mode={cfg.fusion.fusion_mode!r}: the port runs 'mean' "
+            "and 'consensus'"
         )
     if cfg.fusion.ray_pool_mode not in ("exact", "affine", "affine_pallas"):
         raise NotImplementedError(
@@ -505,6 +534,7 @@ def run_sweep(
     bbox_max: np.ndarray,
     cfg: Config,
     predictor: Predictor,
+    pair_selector: Optional[Callable] = None,
     *,
     device="cuda",
 ) -> Tuple[SparseCubeStore, SweepStats]:
@@ -513,6 +543,10 @@ def run_sweep(
     Args:
       images: (V, H, W, 3) float in [0, 1]; Ps: (V, 3, 4).
       predictor: (B, D, D, D, 6) x (B, 3) -> (B, D, D, D) on ``device``.
+      pair_selector: optional (Ps, origins) -> (pair_idx (N, Nv, 2),
+        pair_w (N, Nv)), called once on the prefilter's survivors with the
+        refined matrices when the prepass ran; default the geometric
+        top-Nv selector.
     """
     dev = resolve_device(device)
     _check_supported(cfg)
@@ -546,7 +580,7 @@ def run_sweep(
         # core claiming gives each voxel one owner: no cross-cube vote
         occupancy_vote=0.0 if pool_window > 0 else 0.5,
     )
-    plan = plan_sweep(Ps, bbox_min, bbox_max, hw, cfg, dev)
+    plan = plan_sweep(Ps, bbox_min, bbox_max, hw, cfg, dev, pair_selector)
     stats.n_cubes_total = plan.n_total
     stats.n_cubes_after_prefilter = plan.n
     t2 = time.perf_counter()
@@ -568,6 +602,7 @@ def run_sweep(
         adaptive_target_density=cfg.fusion.adaptive_target_density,
         compact_k=cfg.sweep.compact_k, pool_window=pool_window,
         ray_pool_mode=cfg.fusion.ray_pool_mode,
+        fusion_mode=resolve_fusion_mode(cfg),
     )
 
     def dispatch(b0):

@@ -165,7 +165,7 @@ def test_adam_step_equals_optax():
     pj = jnp.asarray(p0)
     st = tx.init(pj)
     pt = torch.tensor(p0)
-    opt = T._Adam(pt, 0.3)
+    opt = T.OptaxAdam(pt, 0.3)
     for g in grads:
         up, st = tx.update(jnp.asarray(g), st, pj)
         pj = optax.apply_updates(pj, up)

@@ -275,7 +275,7 @@ def test_run_sweep_with_refinement_and_kernel_path_config(scene):
 
 def test_sweep_rejects_unported_branches(scene):
     _, tcfg = _configs()
-    for fusion in (dict(fusion_mode="consensus"), dict(min_component=2),
+    for fusion in (dict(fusion_mode="median"), dict(min_component=2),
                    dict(ray_pool_mode="affine_matmul")):
         bad = tcfg.replace(fusion=dataclasses.replace(tcfg.fusion, **fusion))
         with pytest.raises(NotImplementedError):
