@@ -7,7 +7,7 @@ the run with a non-zero exit code and no result line):
 
   1. device: the card's name and power limit, PyTorch and CUDA versions;
   2. build: the four CUDA kernel sources, one ``nvcc`` per source, in
-     parallel;
+     parallel, and beside them the native merge and denoise (g++);
   3. scene: the golden sphere in memory, 12 views of 600x800;
   4. main path: ``cli.reconstruct_scan`` with the ``dtu9_full`` preset
      (fast64 SurfaceNet in bf16 with seeded random weights, 64^3 cubes,
@@ -122,15 +122,46 @@ the run with a non-zero exit code and no result line):
       launched the gather and the vote (all on the ``tile`` route) and
       wrote finite points; accuracy and completeness against the analytic
       sphere are reported, not gated; stage times beside phase 5's;
-  17. the result line.
+  17. the eval-split, COLMAP and single-card high-res entry points at
+      their presets' widths (the paper's, unfused inference), a seeded
+      random net at ``fusion.tau=0.5``: (a) ``cli.main(["reconstruct-all",
+      ...])`` with ``--preset dtu_eval_split --protocol dtu
+      --min-component 50`` over the sphere and the tori (12 views of
+      600x800, each written by ``write_scan_sampleset``, the tori traced on
+      the host by a worker process while phases 4-16 run), with their
+      ground truth: fails unless ``report.json`` has both scans, ``_mean``
+      and ``_mean_dtu`` with finite metrics; (b) the sphere's ledger from
+      (a) cut to its first half of lines plus a torn half line, resumed by
+      ``reconstruct --ledger``: fails unless it sweeps exactly the missing
+      cubes (its ledger, its batches, the gather's launches) and its
+      ``.ply`` agrees with (a)'s on >= 0.99 of the union (the largest
+      colour difference is reported); (c) ``reconstruct --colmap --preset
+      tanks_temples`` on the sphere written by ``write_colmap_model`` with
+      the world scaled by 6 (its bbox >= 3 cubes of 128 mm a side): fails
+      unless points come out and the loaded matrices equal the written
+      ones within 1e-9 relative; (d) ``reconstruct --preset highres_sharded
+      --allow-unsharded`` (0.2 mm voxels) on phase 10's scan with (e)
+      ``--metrics-out``: fails unless it writes
+      points and the JSON line has the reference's keys, and unless the
+      same command without the flag exits with the reference's message;
+      (f) the merge with the denoise (``min_component`` 50) on (d)'s store,
+      native, then numpy: equal point sets; then ``cli.main(
+      ["export", ..., "--selfcheck"])`` of the paper-width forward: the
+      loaded program within 1e-5 of the direct forward; every sweep of
+      (a)-(d) must launch one bf16 gather and one tile-route vote a batch
+      at least;
+  18. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  Writes only to a temporary directory and to the
-package's git-ignored build directory.  Needs no PIL.
+package's git-ignored build directory; its one worker process ends with
+the script.  Needs no PIL.
 """
 
+import concurrent.futures
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -141,12 +172,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from surfacenet_tpu_torch import cli
+from surfacenet_tpu_torch import cli, native
 from surfacenet_tpu_torch.cli import reconstruct_scan
 from surfacenet_tpu_torch.config import baseline_config
 from surfacenet_tpu_torch.data.dtu import Scan, load_scan, write_scan
 from surfacenet_tpu_torch.data.synthetic import (
-    make_occluded_scene, make_sphere_scene,
+    make_occluded_scene, make_sphere_scene, make_tori_scene,
 )
 from surfacenet_tpu_torch.geometry.camera import project_rows
 from surfacenet_tpu_torch.models.convert import save_npz
@@ -809,11 +840,331 @@ def occlusion_phase(dev, tmp, main_sweep):
             "runs": runs}
 
 
+# the reference's Metrics record of a run_sweep with the refinement
+# prepass on (tests/test_torch_eval_split.py holds the sweep without the
+# prepass to the first nine keys); "compact_truncation_refetches" joins it
+# when a cube's compact records fell short
+SWEEP_METRICS_KEYS = {
+    "ts", "cubes_processed", "voxels_occupied", "occupancy_rate",
+    "sweep_wall_s", "cubes_per_s", "n_cubes_total",
+    "n_cubes_after_prefilter", "n_cubes_nonempty",
+    "refine_calib_max_shift_px", "refine_calib_passes",
+}
+
+
+def decompose_projection(P):
+    """P = K [R|t] with K upper-triangular, positive diagonal, K[2,2] = 1."""
+    from scipy.linalg import rq
+
+    K, R = rq(P[:, :3])
+    S = np.diag(np.sign(np.diag(K)))
+    K, R = K @ S, S @ R
+    return K / K[2, 2], R, np.linalg.solve(K, P[:, 3])
+
+
+def catch_stores():
+    """Wrap ``run_sweep`` (which ``cli.reconstruct_scan`` imports at each
+    call) so that the stores it returns are kept: (stores list, undo)."""
+    from surfacenet_tpu_torch.pipeline import sweep as sweep_mod
+
+    stores, real = [], sweep_mod.run_sweep
+
+    def kept(*args, **kw):
+        store, stats = real(*args, **kw)
+        stores.append(store)
+        return store, stats
+
+    sweep_mod.run_sweep = kept
+    return stores, lambda: setattr(sweep_mod, "run_sweep", real)
+
+
+def launch_counts():
+    return dict(warp_gather.entry_launches,
+                warp_gather=warp_gather.launches,
+                affine_vote=affine_vote.launches,
+                affine_vote_routes=dict(affine_vote.route_launches))
+
+
+def check_sweep_launches(name, launches, n_batches):
+    """At least one gather (bf16 entry) and one vote (tile route) a batch."""
+    if (launches["warp_gather"] < n_batches
+            or launches["warp_gather_bf16"] != launches["warp_gather"]
+            or launches["affine_vote"] < n_batches
+            or launches["affine_vote_routes"]["tile"]
+            != launches["affine_vote"]):
+        raise RuntimeError(f"{name}: not one bf16 gather and one tile-route "
+                           f"vote a batch ({n_batches}): {launches}")
+
+
+def eval_split_phase(dev, tmp, scene, scan_dir, tori):
+    """Phase 17: the eval-split, COLMAP and single-card high-res entry
+    points at their presets' widths (the paper's, unfused), a seeded random
+    net at ``fusion.tau=0.5``: (a) ``cli reconstruct-all`` over the sphere
+    and the tori, (b) a resumed ``reconstruct --ledger``, (c) ``reconstruct
+    --colmap``, (d) ``reconstruct --allow-unsharded`` at 0.2 mm with (e)
+    ``--metrics-out``, (f) the native merge and denoise against their numpy
+    versions on (d)'s store, and ``cli export``.  Returns the readings and
+    the kernels' launches a run."""
+    from surfacenet_tpu_torch.data.colmap import (
+        load_colmap_scan, write_colmap_model,
+    )
+    from surfacenet_tpu_torch.data.dtu import (
+        DTU_EVAL_SCANS, write_scan_sampleset,
+    )
+    cfg = baseline_config("dtu_eval_split")
+    npz = f"{tmp}/paper.npz"
+    save_npz(init_surfacenet(cfg.model, torch.Generator().manual_seed(0))
+             .state_dict(), npz)
+    net = ["--checkpoint", npz, "--set", "fusion.tau=0.5"]
+    launches, out = {}, {}
+
+    # (a) reconstruct-all over two scans in the SampleSet layout (one root
+    # each: a SampleSet shares one calibration folder), --protocol dtu
+    t0 = time.perf_counter()
+    names = [f"scan{DTU_EVAL_SCANS[0]}", f"scan{DTU_EVAL_SCANS[1]}"]
+    dirs = []
+    os.makedirs(f"{tmp}/split/gt")
+    for i, (name, sc) in enumerate(zip(names, (scene, tori))):
+        dirs.append(write_scan_sampleset(f"{tmp}/split/set{i}", name,
+                                         sc.images, sc.Ps))
+        write_ply(f"{tmp}/split/gt/{name}.ply", sc.surface_points(20000))
+    write_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    report, runs = cli.main([
+        "reconstruct-all", "--scans", *dirs, "--out-dir", f"{tmp}/split/out",
+        "--gt-dir", f"{tmp}/split/gt", "--protocol", "dtu",
+        "--min-component", "50", "--preset", "dtu_eval_split", *net])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["reconstruct_all"] = launch_counts()
+    n_batches = sum(st.n_batches for st, _ in runs.values())
+    check_sweep_launches("reconstruct-all", launches["reconstruct_all"],
+                         n_batches)
+    scans = {}
+    for name in names:
+        st, tm = runs[name]
+        scans[name] = dict(report[name], batches=st.n_batches,
+                           refetched=st.n_refetched,
+                           cubes_per_s=st.n_cubes_after_prefilter
+                           / tm["sweep_s"], stages=tm,
+                           ledger_mb=os.path.getsize(
+                               f"{tmp}/split/out/{name}.ledger.jsonl") / 1e6)
+    out["reconstruct_all"] = {"scans": scans, "_mean": report.get("_mean"),
+                              "_mean_dtu": report.get("_mean_dtu"),
+                              "wall_s": wall, "write_s": write_s,
+                              "launches": launches["reconstruct_all"]}
+    log(f"reconstruct-all {json.dumps(out['reconstruct_all'])}")
+    for name in names:
+        r = report[name]
+        vals = [r.get("acc_mm"), r.get("comp_mm"),
+                r.get("dtu", {}).get("acc_mean_mm"),
+                r.get("dtu", {}).get("comp_mean_mm")]
+        if r["points"] <= 0 or None in vals or not np.isfinite(vals).all():
+            raise RuntimeError(f"reconstruct-all: {name} has no finite "
+                               f"metrics: {r}")
+    if ("_mean" not in report or "_mean_dtu" not in report
+            or not np.isfinite(list(report["_mean"].values())
+                               + list(report["_mean_dtu"].values())).all()):
+        raise RuntimeError(f"reconstruct-all: no split means: {report}")
+
+    # (b) kill and resume: (a)'s sphere ledger, cut to its first half of
+    # lines plus a torn half line, resumed by reconstruct --ledger
+    lines = open(f"{tmp}/split/out/{names[0]}.ledger.jsonl").read() \
+        .splitlines()
+    keep = lines[: len(lines) // 2]
+    kept = {tuple(json.loads(x)["grid_idx"]) for x in keep}
+    missing = {tuple(json.loads(x)["grid_idx"]) for x in lines} - kept
+    cut = f"{tmp}/split/cut.jsonl"
+    with open(cut, "w") as f:
+        f.write("\n".join(keep) + "\n"
+                + lines[len(keep)][: len(lines[len(keep)]) // 2])
+    reset_counts()
+    t0 = time.perf_counter()
+    n_res, st_res, tm_res = cli.main([
+        "reconstruct", "--scan", dirs[0], "--out", f"{tmp}/split/res.ply",
+        "--ledger", cut, "--min-component", "50", "--preset",
+        "dtu_eval_split", *net])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["resume"] = launch_counts()
+    swept = {tuple(json.loads(x)["grid_idx"])
+             for x in open(cut).read().splitlines()[len(keep) + 1:]}
+    want_batches = -(-len(missing) // cfg.sweep.cube_batch)
+    g = launches["resume"]["warp_gather"]
+    pa = read_ply(f"{tmp}/split/out/{names[0]}.ply")
+    pb = read_ply(f"{tmp}/split/res.ply")
+    key_a = {tuple(p): c for p, c in zip(np.round(pa[0] * 1e3).astype(
+        np.int64).tolist(), pa[1].astype(int).tolist())}
+    key_b = {tuple(p): c for p, c in zip(np.round(pb[0] * 1e3).astype(
+        np.int64).tolist(), pb[1].astype(int).tolist())}
+    both = key_a.keys() & key_b.keys()
+    col = max((max(abs(x - y) for x, y in zip(key_a[k], key_b[k]))
+               for k in both), default=0)
+    out["resume"] = {
+        "ledger_lines": len(lines), "kept": len(keep),
+        "missing": len(missing), "swept": len(swept),
+        "batches": st_res.n_batches, "refetched": st_res.n_refetched,
+        "points": n_res, "points_uninterrupted": len(pa[0]),
+        "voxel_agreement": voxel_set_agreement(pb[0], pa[0]),
+        "max_colour_diff_u8": col, "wall_s": wall, "stages": tm_res,
+        "launches": launches["resume"]}
+    log(f"resume {json.dumps(out['resume'])}")
+    if (swept != missing or st_res.n_batches != want_batches
+            or st_res.n_cubes_after_prefilter != len(lines)
+            or not want_batches <= g <= want_batches + st_res.n_refetched):
+        raise RuntimeError(f"the resumed run did not sweep exactly the "
+                           f"{len(missing)} missing cubes: {out['resume']}")
+    check_sweep_launches("resume", launches["resume"], want_batches)
+    if out["resume"]["voxel_agreement"] < 0.99:
+        raise RuntimeError("the resumed .ply differs from the uninterrupted "
+                           "one on more than 1% of the union")
+
+    # (c) reconstruct --colmap at tanks_temples: the sphere scene's cameras
+    # as a COLMAP model, the world scaled by 6 (translations and points;
+    # the images unchanged) so that its bbox spans >= 3 cubes of 128 mm
+    # on each axis
+    k = 6.0
+    Ks, Rs, ts = zip(*(decompose_projection(P) for P in scene.Ps))
+    ts = [t * k for t in ts]
+    written = np.stack([K @ np.concatenate([R, t[:, None]], 1)
+                        for K, R, t in zip(Ks, Rs, ts)])
+    t0 = time.perf_counter()
+    write_colmap_model(f"{tmp}/colmap/sparse", scene.images, np.stack(Ks),
+                       np.stack(Rs), np.stack(ts),
+                       points3d=scene.surface_points(5000) * k)
+    write_s = time.perf_counter() - t0
+    import surfacenet_tpu_torch.data.colmap as colmap_mod
+
+    loaded = []
+
+    def load_kept(*a, **kw):
+        loaded.append(load_colmap_scan(*a, **kw))
+        return loaded[-1]
+
+    colmap_mod.load_colmap_scan = load_kept
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        n_col, st_col, tm_col = cli.main([
+            "reconstruct", "--colmap", "--scan", f"{tmp}/colmap/sparse",
+            "--out", f"{tmp}/colmap/c.ply", "--preset", "tanks_temples",
+            *net])
+    finally:
+        colmap_mod.load_colmap_scan = load_colmap_scan
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["colmap"] = launch_counts()
+    scan_c = loaded[0]
+    ps_err = float(np.abs(scan_c.Ps - written).max() / np.abs(written).max())
+    tt = baseline_config("tanks_temples")
+    span = (scan_c.bbox_max - scan_c.bbox_min) / tt.voxel.cube_extent_mm
+    g_c, _ = enumerate_cubes(scan_c.bbox_min, scan_c.bbox_max, tt)
+    out["colmap"] = {"points": n_col, "cubes": st_col.n_cubes_after_prefilter,
+                     "lattice": (g_c.max(axis=0) + 1).tolist(),
+                     "bbox_in_cubes": span.tolist(),
+                     "batches": st_col.n_batches, "Ps_rel_err": ps_err,
+                     "write_s": write_s, "wall_s": wall, "stages": tm_col,
+                     "launches": launches["colmap"]}
+    log(f"colmap {json.dumps(out['colmap'])}")
+    if n_col <= 0 or ps_err > 1e-9 or (span < 3).any():
+        raise RuntimeError(f"reconstruct --colmap: {out['colmap']}")
+    check_sweep_launches("colmap", launches["colmap"], st_col.n_batches)
+
+    # (d) highres_sharded on one card: --allow-unsharded, (e) with
+    # --metrics-out; without the flag it must exit with the reference's
+    # message
+    hr = ["reconstruct", "--scan", scan_dir, "--out", f"{tmp}/hr.ply",
+          "--preset", "highres_sharded", *net]
+    why = ("error: sharded sweep needs block_axis=2 to divide the "
+           f"{torch.cuda.device_count()} available device(s). Fix the "
+           "mesh/batch request, or pass --allow-unsharded to accept the "
+           "unsharded fallback.")
+    try:
+        cli.main(hr)
+    except SystemExit as e:
+        if str(e) != why:
+            raise RuntimeError(f"highres without --allow-unsharded exited "
+                               f"with {e!r}") from None
+    else:
+        raise RuntimeError("highres without --allow-unsharded swept")
+    stores, undo = catch_stores()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        n_hr, st_hr, tm_hr = cli.main(hr + [
+            "--allow-unsharded", "--metrics-out", f"{tmp}/hr.jsonl"])
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["highres"] = launch_counts()
+    recs = [json.loads(x) for x in open(f"{tmp}/hr.jsonl")]
+    want_keys = SWEEP_METRICS_KEYS | (
+        {"compact_truncation_refetches"} if st_hr.n_refetched else set())
+    out["highres"] = {
+        "points": n_hr, "cubes": st_hr.n_cubes_after_prefilter,
+        "batches": st_hr.n_batches, "refetched": st_hr.n_refetched,
+        "cubes_per_s": st_hr.n_cubes_after_prefilter / tm_hr["sweep_s"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "wall_s": wall, "stages": tm_hr, "metrics": recs[-1],
+        "launches": launches["highres"]}
+    log(f"highres {json.dumps(out['highres'])}")
+    if n_hr <= 0 or len(recs) != 1 or set(recs[0]) != want_keys:
+        raise RuntimeError(f"highres --allow-unsharded --metrics-out: "
+                           f"{n_hr} points, metrics {recs}")
+    check_sweep_launches("highres", launches["highres"], st_hr.n_batches)
+
+    # (f) the merge with the denoise (--min-component 50) on (d)'s store,
+    # native then numpy on the host clock (seconds each at the random
+    # net's ~3% occupancy); then cli export of the forward
+    store = stores[0]
+    n_rec = len(store._records()[0])
+    merged, merge_ms = {}, {}
+    for backend in ("native", "numpy"):
+        store.merge_backend = backend
+        t0 = time.perf_counter()
+        pts = store.merge(min_component=50)[0]
+        merge_ms[backend] = 1e3 * (time.perf_counter() - t0)
+        merged[backend] = pts[np.lexsort(pts.T)]
+    store.merge_backend = "native"
+    out["merge"] = {"records": n_rec, "points": len(merged["native"]),
+                    "points_before_denoise": n_hr,
+                    "native_ms": merge_ms["native"],
+                    "numpy_ms": merge_ms["numpy"],
+                    "equal_point_sets": bool(np.array_equal(
+                        merged["native"], merged["numpy"]))}
+    log(f"merge and denoise {json.dumps(out['merge'])}")
+    if not out["merge"]["equal_point_sets"] or out["merge"]["points"] <= 0:
+        raise RuntimeError(f"the native merge and denoise differ from their "
+                           f"numpy versions: {out['merge']}")
+    B_items = cfg.sweep.cube_batch * cfg.fusion.n_view_pairs
+    t0 = time.perf_counter()
+    ex = cli.main(["export", "--checkpoint", npz, "--preset",
+                   "dtu_eval_split", "--out", f"{tmp}/fwd.pt2", "--batch",
+                   str(B_items), "--selfcheck"])
+    ex["wall_s"] = time.perf_counter() - t0
+    out["export"] = ex
+    log(f"export {json.dumps(ex)}")
+    if ex["selfcheck_err"] is None or ex["selfcheck_err"] > 1e-5:
+        raise RuntimeError(f"export self-check failed: {ex}")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
         return 2
+    # one worker process renders phase 17's tori on the host while the
+    # card runs phases 4-16; leaving the block terminates it
+    with multiprocessing.get_context("spawn").Pool(1, os.nice,
+                                                  (10,)) as pool:
+        return run(pool)
+
+
+def run(pool) -> int:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -829,8 +1180,13 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     phase(2, "build")
-    secs = _build.build_all()
-    log(f"kernels built in {secs:.2f} s")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        native_so = ex.submit(native.build)  # g++, beside the nvcc builds
+        secs = _build.build_all()
+        log(f"kernels built in {secs:.2f} s; native merge and denoise "
+            f"{os.path.basename(native_so.result())} after "
+            f"{time.perf_counter() - t0:.2f} s")
     for name, out in sorted(_build.build_log.items()):
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -844,6 +1200,11 @@ def main() -> int:
                 "sphere")
     log(f"sphere scene {scene.images.shape} in "
         f"{time.perf_counter() - t0:.2f} s")
+
+    # the tori for phase 17: 12 views of 600x800 at the sphere's focal,
+    # sphere-traced on the host (~20 s), in the worker process
+    tori_job = pool.apply_async(make_tori_scene, kwds=dict(
+        n_views=12, hw=(600, 800), focal=1000.0))
 
     cfg = baseline_config("dtu9_full")
     D, s = cfg.voxel.cube_size, cfg.voxel.voxel_size_mm
@@ -1407,6 +1768,19 @@ def main() -> int:
     occ_launches = {r["run"]: r["launches"] for r in occlusion["runs"]}
     log(f"occlusion phase {time.perf_counter() - t0:.1f} s")
 
+    phase(17, "the eval-split, COLMAP and single-card high-res entry "
+          "points: cli reconstruct-all (dtu_eval_split), a resumed "
+          "reconstruct --ledger, reconstruct --colmap (tanks_temples), "
+          "reconstruct --allow-unsharded --metrics-out (highres_sharded), "
+          "the native merge and denoise, cli export")
+    t0 = time.perf_counter()
+    tori = tori_job.get(timeout=600)
+    log(f"tori scene {tori.images.shape} waited "
+        f"{time.perf_counter() - t0:.2f} s")
+    split, split_launches = eval_split_phase(dev, tmp.name, scene, scan_dir,
+                                             tori)
+    log(f"eval-split phase {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -1419,6 +1793,9 @@ def main() -> int:
             "occlusion_path_launches": {
                 k: v["warp_gather"] for k, v in occ_launches.items()},
             "occlusion": occlusion,
+            "eval_split_path_launches": {
+                k: v["warp_gather"] for k, v in split_launches.items()},
+            "eval_split": split,
         },
         {
             "name": "affine_vote", "route": "cuda",
@@ -1434,6 +1811,8 @@ def main() -> int:
             "cubes": B,
             "occlusion_path_launches": {
                 k: v["affine_vote"] for k, v in occ_launches.items()},
+            "eval_split_path_launches": {
+                k: v["affine_vote"] for k, v in split_launches.items()},
         },
         {
             "name": "conv3d", "route": "cuda",
@@ -1481,7 +1860,7 @@ def main() -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(17, "result")
+    phase(18, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,16 @@
 
     python -m surfacenet_tpu_torch.cli reconstruct --scan DIR --out out.ply \
         [--preset dtu9_full | --config cfg.json] [--set voxel.cube_size=64] \
-        [--checkpoint weights.npz] [--pairnet pairnet.npz] \
-        [--bbox x0,y0,z0,x1,y1,z1] [--device cuda]
+        [--checkpoint weights.npz] [--pairnet pairnet.npz] [--colmap] \
+        [--bbox x0,y0,z0,x1,y1,z1] [--ledger l.jsonl] [--metrics-out m.jsonl] \
+        [--min-component N] [--keep-top-components N] \
+        [--sharded] [--allow-unsharded] [--device cuda]
+    python -m surfacenet_tpu_torch.cli reconstruct-all (--root DIR |
+        --scans DIR ...) [--out-dir results] [--gt-dir DIR]
+        [--protocol clamp|dtu] [--checkpoint w.npz] [--pairnet p.npz]
+        [--min-component N] [--preset dtu_eval_split] [--allow-unsharded]
+    python -m surfacenet_tpu_torch.cli export --checkpoint w.npz \
+        [--out surfacenet_fwd.pt2] [--batch 160] [--selfcheck] [--preset P]
     python -m surfacenet_tpu_torch.cli train [--synthetic sphere|tori |
         --scan DIR --gt gt.ply] [--steps N] [--checkpoint-dir DIR]
         [--resume] [--preset dtu9_full] [--set train.batch_size=8]
@@ -20,7 +28,19 @@ predictor runs.  ``--pairnet`` takes a pair-net ``.npz``
 (``weights_torch/pairnet_10000.npz``, or ``train-pairnet``'s
 ``pairnet_N.npz``, or a directory of those: the highest step) and selects
 each cube's pairs with the cube-local learned selector; without it the
-geometric selector runs.  ``train`` trains SurfaceNet on a synthetic golden
+geometric selector runs.  ``--colmap`` reads ``--scan`` as a COLMAP text
+model (``data/colmap.py``).  ``--ledger`` makes the sweep restartable:
+a killed run resumes from the cubes the ledger holds.  ``--sharded`` (or a
+config with ``mesh.block_axis > 1``, as ``highres_sharded``) asks for the
+sharded sweep, which is not ported (ROADMAP A5): on fewer than 2 cards
+(or a block count that does not divide them) the command exits unless
+``--allow-unsharded`` accepts the single-device sweep with the config's
+other settings.  ``reconstruct-all`` sweeps every scan of an eval split
+(one ledger and one ``.ply`` per scan, ``report.json`` with per-scan and
+split-mean metrics against ``--gt-dir``).  ``export`` writes the trained
+forward as a ``torch.export`` program with the weights in it
+(``torch.export.load(path).module()`` runs it).  ``train`` trains
+SurfaceNet on a synthetic golden
 scene or a scan with its ground-truth ``.ply`` and writes ``step_N/``
 checkpoints; ``train-pairnet`` triplet-trains the pair net on the
 synthetic sphere (8 views of 240x320) or a scan with its ground truth and
@@ -95,10 +115,10 @@ def _load_predictor(checkpoint, cfg, device):
 
 
 def make_pair_selector(pairnet, cfg, images, device="cuda"):
-    """The cube-local learned pair selector with the pair net at
-    ``pairnet`` (``train/train_pair.py::restore_pairnet``), on ``images``
-    (V, H, W, 3); None without ``pairnet``.  A missing or mismatched file
-    raises."""
+    """The cube-local learned pair selector on ``images`` (V, H, W, 3) with
+    the pair net ``pairnet``: a loaded ``PairNet``, or its path
+    (``train/train_pair.py::restore_pairnet``; a missing or mismatched file
+    raises); None without ``pairnet``."""
     if not pairnet:
         return None
     import functools
@@ -108,8 +128,11 @@ def make_pair_selector(pairnet, cfg, images, device="cuda"):
     from surfacenet_tpu_torch.train.train_pair import restore_pairnet
 
     dev = resolve_device(device)
-    model = restore_pairnet(pairnet, cfg.pairnet).to(dev)
-    print(f"using learned pair selection with {pairnet}")
+    model = pairnet
+    if isinstance(pairnet, str):
+        model = restore_pairnet(pairnet, cfg.pairnet)
+        print(f"using learned pair selection with {pairnet}")
+    model = model.to(dev)
     return functools.partial(
         select_pairs_learned_local, n_pairs=cfg.fusion.n_view_pairs,
         image_hw=tuple(np.asarray(images).shape[1:3]),
@@ -218,14 +241,62 @@ def cmd_eval(args):
             "n_pred_total": len(pred), "n_gt_total": len(gt)}
 
 
+def _degrade_or_die(args, why: str) -> None:
+    """An explicitly requested parallel layout that cannot be honored is a
+    hard error (on a real N-chip job a silent fallback is a silent N-x
+    slowdown); --allow-unsharded opts back into the old print-and-continue
+    behavior (VERDICT r2 weak #6)."""
+    if getattr(args, "allow_unsharded", False):
+        print(f"{why}; running unsharded (--allow-unsharded)")
+        return
+    raise SystemExit(
+        f"error: {why}. Fix the mesh/batch request, or pass "
+        f"--allow-unsharded to accept the unsharded fallback."
+    )
+
+
+def _single_device_config(args, cfg, dev):
+    """``cfg`` for the single-device sweep, or the reference's exit.
+
+    ``--sharded`` or ``mesh.block_axis > 1`` asks for the sharded sweep.
+    Where it could not run (fewer than 2 devices, or a block count that
+    does not divide them; ``--device cpu`` counts 1), ``_degrade_or_die``
+    exits unless ``--allow-unsharded`` accepts the single-device sweep,
+    which then runs with ``block_axis`` 1 and the config's other settings.
+    Where it could run, the port raises: the sharded sweep is not ported,
+    and a silent one-card sweep would hide that.  (The reference's
+    per-process export branch has no counterpart: the port runs one
+    process.)
+    """
+    if not (args.sharded or cfg.mesh.block_axis > 1):
+        return cfg
+    import torch
+
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n_block = max(cfg.mesh.block_axis, 1)
+    if n_dev < 2 or n_dev % n_block != 0:
+        _degrade_or_die(
+            args,
+            f"sharded sweep needs block_axis={n_block} to divide the "
+            f"{n_dev} available device(s)",
+        )
+        return cfg.replace(mesh=dataclasses.replace(cfg.mesh, block_axis=1))
+    raise NotImplementedError(
+        f"the sharded sweep over {n_dev} devices (block_axis={n_block}) is "
+        "not ported (ROADMAP A5); the port sweeps on one card")
+
+
 def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda",
-                     pair_selector=None):
+                     pair_selector=None, ledger_path=None, metrics=None,
+                     min_component=None, keep_top_components=None):
     """Sweep a loaded scan and write the merged point cloud to ``out``.
 
     ``scan`` has images (V, H, W, 3), Ps (V, 3, 4) and bbox_min/bbox_max
-    (estimated from the cameras when None); ``pair_selector`` as
-    ``run_sweep``'s (``make_pair_selector``).  Returns (points written,
-    SweepStats, {stage: wall seconds}).
+    (estimated from the cameras when None); ``pair_selector``,
+    ``ledger_path`` and ``metrics`` as ``run_sweep``'s; the export drops
+    26-connected clusters below ``min_component`` voxels (None:
+    ``cfg.fusion.min_component``) and keeps the ``keep_top_components``
+    largest.  Returns (points written, SweepStats, {stage: wall seconds}).
     """
     from surfacenet_tpu_torch.device import resolve_device
     from surfacenet_tpu_torch.geometry.camera import (
@@ -243,10 +314,13 @@ def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda",
         )
     store, stats = run_sweep(
         scan.images, scan.Ps, bbox_min, bbox_max, cfg, predictor,
-        pair_selector, device=dev,
+        pair_selector, ledger_path, metrics, device=dev,
     )
+    if min_component is None:
+        min_component = cfg.fusion.min_component
     t0 = time.perf_counter()
-    n = store.export_ply(out)
+    n = store.export_ply(out, min_component=min_component,
+                         keep_top_components=keep_top_components)
     timings = {
         "refine_s": stats.refine_s, "plan_s": stats.plan_s,
         "sweep_s": stats.sweep_s, "merge_export_s": time.perf_counter() - t0,
@@ -258,13 +332,17 @@ def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda",
     return n, stats, timings
 
 
-def cmd_reconstruct(args):
-    from surfacenet_tpu_torch.data.dtu import load_scan
-    from surfacenet_tpu_torch.device import resolve_device
+def _load_scan(args):
+    """The scan of ``--scan``: a COLMAP model with ``--colmap``, else a
+    DTU or generic scan directory; ``--bbox`` overrides its bbox."""
+    if args.colmap:
+        from surfacenet_tpu_torch.data.colmap import load_colmap_scan
 
-    dev = resolve_device(args.device)
-    cfg = _load_config(args)
-    scan = load_scan(args.scan, downsample=args.downsample)
+        scan = load_colmap_scan(args.scan, downsample=args.downsample)
+    else:
+        from surfacenet_tpu_torch.data.dtu import load_scan
+
+        scan = load_scan(args.scan, downsample=args.downsample)
     if args.bbox:
         vals = [float(v) for v in args.bbox.split(",")]
         if len(vals) != 6:
@@ -274,9 +352,204 @@ def cmd_reconstruct(args):
             )
         scan.bbox_min = np.asarray(vals[:3])
         scan.bbox_max = np.asarray(vals[3:])
+    return scan
+
+
+def cmd_reconstruct(args):
+    from surfacenet_tpu_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    cfg = _single_device_config(args, _load_config(args), dev)
+    scan = _load_scan(args)
     predictor = _load_predictor(args.checkpoint, cfg, dev)
     selector = make_pair_selector(args.pairnet, cfg, scan.images, dev)
-    return reconstruct_scan(scan, cfg, predictor, args.out, dev, selector)
+    metrics = None
+    if args.metrics_out:
+        from surfacenet_tpu_torch.utils.observability import Metrics
+
+        metrics = Metrics(args.metrics_out)
+    return reconstruct_scan(
+        scan, cfg, predictor, args.out, dev, selector,
+        ledger_path=args.ledger, metrics=metrics,
+        min_component=args.min_component,
+        keep_top_components=args.keep_top_components,
+    )
+
+
+def _split_scores(pts, gt, scan, cfg, protocol, dev):
+    """Per-scan metrics of ``reconstruct-all``: the clamped means (20 mm
+    truncation, as ``cli eval``) and, under ``--protocol dtu``, the
+    official semantics inside the cameras' observability mask."""
+    from surfacenet_tpu_torch.utils.metrics import (
+        ObsMask, accuracy_completeness, dtu_eval,
+    )
+
+    acc, comp = accuracy_completeness(pts, gt, max_dist=20.0, device=dev)
+    row = dict(acc_mm=round(float(acc), 4), comp_mm=round(float(comp), 4),
+               overall_mm=round(float(acc + comp) / 2, 4))
+    line = f", acc {acc:.3f}mm comp {comp:.3f}mm"
+    if protocol == "dtu":
+        mask = ObsMask.from_cameras(
+            scan.Ps, scan.images.shape[1:3], scan.bbox_min, scan.bbox_max,
+            res_mm=4.0 * cfg.voxel.voxel_size_mm,
+        )
+        r = dtu_eval(pts, gt, max_dist=20.0, obs_mask=mask, device=dev)
+        row["dtu"] = {k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in r.items()}
+        line += (f" | dtu acc {r['acc_mean_mm']:.3f} "
+                 f"comp {r['comp_mean_mm']:.3f}")
+    return row, line
+
+
+def cmd_reconstruct_all(args):
+    """Reconstruct every scan of an eval split (BASELINE config 3).
+
+    Each scan directory under ``--root`` (``scan*``) or listed by
+    ``--scans`` is swept with the shared config, predictor and pair net;
+    per-scan ledgers (``<name>.ledger.jsonl``, so the split restarts where
+    it stopped), ``.ply`` files and ``report.json`` land in ``--out-dir``.
+    Returns (report, {scan name: (SweepStats, stage seconds)}).
+    """
+    import glob
+    import os
+
+    from surfacenet_tpu_torch.data.dtu import load_scan
+    from surfacenet_tpu_torch.device import resolve_device
+    from surfacenet_tpu_torch.geometry.camera import (
+        estimate_bbox_from_cameras,
+    )
+    from surfacenet_tpu_torch.utils.ply import read_ply
+
+    dev = resolve_device(args.device)
+    cfg = _load_config(args)
+    scan_dirs = args.scans or (
+        sorted(glob.glob(os.path.join(args.root, "scan*"))) if args.root
+        else [])
+    if not scan_dirs:
+        raise SystemExit("no scans found")
+    os.makedirs(args.out_dir, exist_ok=True)
+    # the predictor and the pair net are loaded once, a selector is built
+    # a scan (on its images)
+    predictor = _load_predictor(args.checkpoint, cfg, dev)
+    pairnet = None
+    if args.pairnet:
+        from surfacenet_tpu_torch.train.train_pair import restore_pairnet
+
+        pairnet = restore_pairnet(args.pairnet, cfg.pairnet)
+        print(f"using learned pair selection with {args.pairnet}")
+    cfg = _single_device_config(args, cfg, dev)
+    min_comp = (args.min_component if args.min_component is not None
+                else cfg.fusion.min_component)
+
+    report, runs = {}, {}
+    for sd in scan_dirs:
+        name = os.path.basename(os.path.normpath(sd))
+        scan = load_scan(sd, downsample=args.downsample)
+        if scan.bbox_min is None:
+            scan.bbox_min, scan.bbox_max = estimate_bbox_from_cameras(scan.Ps)
+        t0 = time.perf_counter()
+        selector = make_pair_selector(pairnet, cfg, scan.images, dev)
+        out_ply = os.path.join(args.out_dir, f"{name}.ply")
+        n, stats, timings = reconstruct_scan(
+            scan, cfg, predictor, out_ply, dev, selector,
+            ledger_path=os.path.join(args.out_dir, f"{name}.ledger.jsonl"),
+            min_component=min_comp,
+        )
+        dt = time.perf_counter() - t0
+        runs[name] = (stats, timings)
+        report[name] = {"points": n, "cubes": stats.n_cubes_after_prefilter,
+                        "seconds": round(dt, 2)}
+        line = (f"{name}: {n} points, "
+                f"{stats.n_cubes_after_prefilter} cubes, {dt:.1f}s")
+        if args.gt_dir:
+            gt_ply = os.path.join(args.gt_dir, f"{name}.ply")
+            if os.path.exists(gt_ply) and n:
+                row, more = _split_scores(read_ply(out_ply)[0],
+                                          read_ply(gt_ply)[0], scan, cfg,
+                                          args.protocol, dev)
+                report[name].update(row)
+                line += more
+            elif not os.path.exists(gt_ply):
+                print(f"{name}: no GT at {gt_ply}; skipping metrics")
+            else:
+                print(f"{name}: empty prediction; skipping metrics")
+        print(f"{line} -> {out_ply}")
+    # split means over the scans with metrics (the DTU protocol's table)
+    scored = [r for r in report.values() if "acc_mm" in r]
+    if scored:
+        report["_mean"] = {
+            k: round(sum(r[k] for r in scored) / len(scored), 4)
+            for k in ("acc_mm", "comp_mm", "overall_mm")
+        }
+        print(f"split mean: {report['_mean']}")
+        dtu_scored = [r["dtu"] for r in scored if "dtu" in r]
+        if dtu_scored:
+            report["_mean_dtu"] = {
+                k: round(sum(d[k] for d in dtu_scored) / len(dtu_scored), 4)
+                for k in ("acc_mean_mm", "comp_mean_mm", "overall_mm")
+            }
+            print(f"split mean (dtu protocol): {report['_mean_dtu']}")
+    with open(os.path.join(args.out_dir, "report.json"), "w") as f:
+        json.dump(report, f, indent=2)
+    return report, runs
+
+
+def cmd_export(args):
+    """Serialise the trained forward for serving (``torch.export``).
+
+    The program has the checkpoint's weights in it and a fixed
+    ``(batch, D, D, D, in_channels)`` float32 -> ``(batch, D, D, D)``
+    signature; a serving process loads it with
+    ``torch.export.load(path).module()``, without the port's model code.
+    It is the unfused forward (``SurfaceNet.forward`` in the config's
+    dtype); the fused forward calls kernels loaded with ctypes, which
+    ``torch.export`` cannot trace, so ``model.fused_inference`` raises.
+    Returns {"out", "bytes", "export_s", "selfcheck_err"}.
+    """
+    import os
+
+    import torch
+
+    from surfacenet_tpu_torch.device import resolve_device
+    from surfacenet_tpu_torch.models.convert import load_surfacenet
+    from surfacenet_tpu_torch.models.surfacenet import make_predictor
+
+    dev = resolve_device(args.device)
+    cfg = _load_config(args)
+    if cfg.model.fused_inference:
+        raise NotImplementedError(
+            "export of the fused forward (model.fused_inference=true) is not "
+            "ported (ROADMAP A8): its convs are CUDA kernels loaded with "
+            "ctypes, which torch.export cannot trace; export the unfused "
+            "forward (model.fused_inference=false)")
+    predict = make_predictor(load_surfacenet(args.checkpoint, cfg.model),
+                             cfg.model, dev)
+    D = cfg.voxel.cube_size
+    shape = (args.batch, D, D, D, cfg.model.in_channels)
+    t0 = time.perf_counter()
+    prog = torch.export.export(
+        predict.module, (torch.zeros(shape, dtype=torch.float32,
+                                     device=dev),))
+    # the program holds its signature; the example batch need not be saved
+    prog.example_inputs = None
+    torch.export.save(prog, args.out)
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(args.out)
+    print(f"exported forward {shape} -> {args.out} ({size / 1e6:.1f} MB, "
+          f"device {dev})")
+    result = {"out": args.out, "bytes": size, "export_s": export_s,
+              "selfcheck_err": None}
+    if args.selfcheck:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.rand(shape, generator=gen, device=dev) - 0.5
+        with torch.inference_mode():
+            got = torch.export.load(args.out).module()(x)
+        err = float((got - predict(x)).abs().max())
+        print(f"selfcheck: max |loaded - direct| = {err:.2e}")
+        result["selfcheck_err"] = err
+        if err > 1e-5:
+            raise SystemExit("selfcheck FAILED")
+    return result
 
 
 def cmd_train(args):
@@ -379,12 +652,86 @@ def main(argv=None):
                     help="pair-net .npz (or a directory of pairnet_N.npz) "
                          "-> cube-local learned pair selection (default: "
                          "the geometric selector)")
+    pr.add_argument("--colmap", action="store_true",
+                    help="--scan is a COLMAP text model (cameras.txt, "
+                         "images.txt, [points3D.txt]; images in ../images)")
+    pr.add_argument("--sharded", action="store_true",
+                    help="mesh-sharded sweep (auto when mesh.block_axis>1); "
+                         "not ported: exits on one device unless "
+                         "--allow-unsharded, raises on several (ROADMAP A5)")
+    pr.add_argument("--allow-unsharded", action="store_true",
+                    help="accept an unsharded fallback instead of "
+                         "erroring when the requested mesh/batch "
+                         "layout is unusable")
+    pr.add_argument("--ledger",
+                    help="JSON-lines resume ledger: cubes it holds are not "
+                         "swept again")
+    pr.add_argument("--metrics-out",
+                    help="append a JSONL record of sweep counters/gauges "
+                         "(cubes, occupancy, truncation re-fetches) here")
+    pr.add_argument("--min-component", type=int, default=None,
+                    help="denoise: drop merged-voxel clusters smaller than "
+                         "this (default: fusion.min_component from config)")
+    pr.add_argument("--keep-top-components", type=int, default=None,
+                    help="denoise: keep only the N largest clusters")
     pr.add_argument("--downsample", type=int, default=1)
     pr.add_argument("--preset")
     pr.add_argument("--config")
     pr.add_argument("--set", action="append")
     pr.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     pr.set_defaults(fn=cmd_reconstruct)
+
+    pa = sub.add_parser("reconstruct-all",
+                        help="sweep every scan of an eval split")
+    pa.add_argument("--root", help="directory containing scan*/ dirs")
+    pa.add_argument("--scans", nargs="*", help="explicit scan dirs")
+    pa.add_argument("--out-dir", default="results")
+    pa.add_argument("--gt-dir",
+                    help="directory of <scanname>.ply GT clouds; when given, "
+                         "per-scan acc/comp + split means go into "
+                         "report.json")
+    pa.add_argument("--checkpoint", help=".npz weights (models/convert.py)")
+    pa.add_argument("--pairnet",
+                    help="pair-net .npz (or a directory of pairnet_N.npz) "
+                         "-> cube-local learned pair selection (default: "
+                         "the geometric selector)")
+    pa.add_argument("--sharded", action="store_true",
+                    help="mesh-sharded sweeps (auto when mesh.block_axis>1); "
+                         "not ported, as reconstruct --sharded")
+    pa.add_argument("--allow-unsharded", action="store_true",
+                    help="accept an unsharded fallback instead of "
+                         "erroring when the requested mesh/batch "
+                         "layout is unusable")
+    pa.add_argument("--min-component", type=int, default=None,
+                    help="denoise: drop merged-voxel clusters smaller than "
+                         "this (default: fusion.min_component from config)")
+    pa.add_argument("--protocol", choices=("clamp", "dtu"), default="clamp",
+                    help="dtu: add official-protocol metrics per scan "
+                         "(camera-derived obs mask, dropped outliers, "
+                         "medians) alongside the clamped defaults")
+    pa.add_argument("--downsample", type=int, default=1)
+    pa.add_argument("--preset")
+    pa.add_argument("--config")
+    pa.add_argument("--set", action="append")
+    pa.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    pa.set_defaults(fn=cmd_reconstruct_all)
+
+    px = sub.add_parser("export",
+                        help="serialize the trained forward for serving")
+    px.add_argument("--checkpoint", required=True,
+                    help=".npz weights (models/convert.py)")
+    px.add_argument("--out", default="surfacenet_fwd.pt2")
+    px.add_argument("--batch", type=int, default=160,
+                    help="items (cube x view-pair) per serving call")
+    px.add_argument("--selfcheck", action="store_true",
+                    help="load the program back and compare it with the "
+                         "direct forward (fails above 1e-5)")
+    px.add_argument("--preset")
+    px.add_argument("--config")
+    px.add_argument("--set", action="append")
+    px.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="device the program is exported for")
+    px.set_defaults(fn=cmd_export)
 
     pt = sub.add_parser("train", help="train SurfaceNet")
     pt.add_argument("--scan")

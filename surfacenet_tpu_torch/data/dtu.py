@@ -180,3 +180,38 @@ def write_scan(
             os.path.join(scan_dir, "bbox.txt"),
             np.stack([bbox_min, bbox_max]),
         )
+
+
+def write_scan_sampleset(
+    root: str,
+    scan_name: str,
+    images: np.ndarray,
+    Ps: np.ndarray,
+    light: str = "3",
+) -> str:
+    """Write a scan in the real DTU SampleSet layout (full-fidelity fixture):
+
+        root/Rectified/<scan_name>/rect_001_<light>_r5000.png   (1-indexed)
+        root/Calibration/cal18/pos_001.txt
+
+    and return the scan directory (``root/Rectified/<scan_name>``) for
+    ``load_scan`` and ``cli reconstruct-all``.
+    """
+    scan_dir = os.path.join(root, "Rectified", scan_name)
+    cal_dir = os.path.join(root, "Calibration", "cal18")
+    os.makedirs(scan_dir, exist_ok=True)
+    os.makedirs(cal_dir, exist_ok=True)
+    for i, (img, P) in enumerate(zip(images, Ps), start=1):
+        u8 = np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8)
+        png.write_png(
+            os.path.join(scan_dir, f"rect_{i:03d}_{light}_r5000.png"), u8
+        )
+        write_projection_matrix(os.path.join(cal_dir, f"pos_{i:03d}.txt"), P)
+    return scan_dir
+
+
+# DTU eval-split scan ids of the reference benchmark (paper SS6).
+DTU_EVAL_SCANS = [
+    1, 4, 9, 10, 11, 12, 13, 15, 23, 24, 29, 32, 33, 34, 48, 49, 62, 75,
+    77, 110, 114, 118,
+]

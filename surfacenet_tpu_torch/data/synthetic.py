@@ -206,7 +206,11 @@ def _trace_sdf(
     bg: float = 0.1,
     n_steps: int = 96,
 ) -> np.ndarray:
-    """Sphere-trace an SDF for one camera (vectorized over pixels)."""
+    """Sphere-trace an SDF for one camera (vectorized over pixels).
+
+    Each step evaluates the SDF on the rays still marching only; every ray
+    takes the reference's steps, so the image is bitwise the reference's.
+    """
     H, W = hw
     M = P[:, :3]
     p4 = P[:, 3]
@@ -218,19 +222,20 @@ def _trace_sdf(
     dirs = pix @ Minv.T
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
 
-    t = np.full((H, W), t_near)
-    hit = np.zeros((H, W), bool)
-    live = np.ones((H, W), bool)
+    rays = dirs.reshape(-1, 3)
+    t = np.full(H * W, t_near)
+    hit = np.zeros(H * W, bool)
+    live = np.arange(H * W)  # flat indices of the marching rays
     for _ in range(n_steps):
-        pts = cam + dirs * t[..., None]
-        d = scene_sdf(pts)
-        newly = live & (d < 1e-3)
-        hit |= newly
-        live &= ~newly
-        t = np.where(live, t + np.maximum(d, 1e-3), t)
-        live &= t < t_far
-        if not live.any():
+        d = scene_sdf(cam + rays[live] * t[live, None])
+        newly = d < 1e-3
+        hit[live[newly]] = True
+        live, d = live[~newly], d[~newly]
+        t[live] = t[live] + np.maximum(d, 1e-3)
+        live = live[t[live] < t_far]
+        if not live.size:
             break
+    t, hit = t.reshape(H, W), hit.reshape(H, W)
     pts = cam + dirs * t[..., None]
     img = np.full((H, W, 3), bg, np.float64)
     img[hit] = _texture(pts[hit], np.zeros(3))

@@ -358,9 +358,9 @@ def make_predictor(model: SurfaceNet, cfg: ModelConfig, device):
     the CPU, because its Pallas kernel cannot run there; the port takes it
     on the CPU too, which is the route its parity tests drive.)  Otherwise
     the model moves to ``device`` in ``cfg.dtype`` with channels-last
-    weights and runs ``SurfaceNet.forward``.  The returned callable
-    carries ``in_dtype`` so the sweep assembles its input batch directly
-    in the model's dtype.
+    weights and runs ``SurfaceNet.forward``; that module is the
+    callable's ``module``.  The returned callable carries ``in_dtype`` so
+    the sweep assembles its input batch directly in the model's dtype.
     """
     if cfg.fused_inference and cfg.upsample_mode == "resize":
         params = fused_params(model.state_dict(), cfg, device)
@@ -376,5 +376,6 @@ def make_predictor(model: SurfaceNet, cfg: ModelConfig, device):
             with torch.inference_mode():
                 return model(x)
 
+        predictor.module = model  # what cli export serialises
     predictor.in_dtype = cfg.dtype
     return predictor

@@ -14,11 +14,17 @@ that the production presets take:
      kernel, or the exact scatter-max raster), tau/gamma thresholds, core
      claiming, best-pair colour and compact top-k records.
   3. Host harvest, pipelined three batches deep: unpack records, re-fetch
-     truncated cubes dense, add to the ``SparseCubeStore``.
+     truncated cubes dense, add to the ``SparseCubeStore`` (and its resume
+     ledger), count into ``Metrics``.
+
+``run_sweep(ledger_path=)`` resumes a killed sweep: cubes the ledger holds
+are not swept again, and the remaining cubes claim exactly what they
+would have claimed in an uninterrupted run.  ``fusion.min_component`` is
+not applied here: the export applies it (``SparseCubeStore.merge``).
 
 Not ported yet (ROADMAP.md): the non-deduplicated gather, the matmul
-ray-pool mode, the connected-component denoise (``fusion.min_component``),
-the resume ledger and the sharded sweep.
+ray-pool mode and the sharded sweep (``mesh.block_axis > 1`` raises; the
+CLI's ``--allow-unsharded`` strips it first).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from surfacenet_tpu_torch.ops.view_pairs import (
     dedup_view_slots, select_pairs_geometric,
 )
 from surfacenet_tpu_torch.pipeline.sparse import CubeResult, SparseCubeStore
+from surfacenet_tpu_torch.utils.observability import trace
 
 # A predictor maps a CVC-pair batch (B, D, D, D, 6) plus the items' cube
 # origins (B, 3) -> per-voxel probabilities (B, D, D, D) float32.
@@ -386,6 +393,7 @@ class SweepPlan:
     core_bounds: Optional[np.ndarray]  # (n_pad, 3, 2) int32
     n: int  # cubes to sweep (rows past n are padding)
     n_total: int  # cubes enumerated before the prefilter
+    n_prefilter: int  # survivors of the prefilter, done cubes included
     pool_window: int
 
     def batch(self, rows, device):
@@ -414,11 +422,17 @@ class SweepPlan:
 
 
 def plan_sweep(Ps, bbox_min, bbox_max, image_hw, cfg: Config,
-               device, pair_selector: Optional[Callable] = None) -> SweepPlan:
-    """Enumerate, prefilter, select pairs, dedup views, claim cores, pad.
+               device, pair_selector: Optional[Callable] = None,
+               done: Optional[set] = None) -> SweepPlan:
+    """Enumerate, prefilter, drop ``done`` cubes, select pairs, dedup
+    views, claim cores, pad.
 
     ``pair_selector`` (Ps, origins) -> (pair_idx (N, Nv, 2), pair_w (N, Nv))
-    picks each cube's pairs; by default the geometric selector.
+    picks each cube's pairs; by default the geometric selector.  ``done``
+    holds the grid indices of cubes already swept (a resumed ledger): they
+    are dropped after the prefilter, but the core claims still see them as
+    present, so their neighbours claim what they would have claimed in an
+    uninterrupted run (a done cube's claims are in the ledger already).
     """
     D = cfg.voxel.cube_size
     grid, origins = enumerate_cubes(bbox_min, bbox_max, cfg)
@@ -426,13 +440,19 @@ def plan_sweep(Ps, bbox_min, bbox_max, image_hw, cfg: Config,
     lattice_max = grid.max(axis=0) if len(grid) else np.zeros(3, int)
     keep = prefilter_cubes(Ps, origins, image_hw, cfg, device)
     grid, origins = grid[keep], origins[keep]
+    present_grid = grid
+    n_prefilter = len(grid)
+    if done:
+        todo = np.array([tuple(int(v) for v in g) not in done for g in grid],
+                        bool)
+        grid, origins = grid[todo], origins[todo]
     pool_window = resolve_pool_window(cfg)
     n = len(origins)
     if n == 0:
         empty = np.zeros((0, cfg.fusion.n_view_pairs, 2), np.int32)
         return SweepPlan(grid, origins, np.zeros((0, 0), np.float32),
                          np.zeros((0, 1), np.int32), empty, None, 0, n_total,
-                         pool_window)
+                         n_prefilter, pool_window)
     if pair_selector is None:
         pair_selector = functools.partial(
             select_pairs_geometric, n_pairs=cfg.fusion.n_view_pairs,
@@ -445,7 +465,7 @@ def plan_sweep(Ps, bbox_min, bbox_max, image_hw, cfg: Config,
     uniq_views, slot_idx = dedup_view_slots(pair_idx)
     core_bounds = (
         core_bounds_for(grid, lattice_max, D, cfg.voxel.overlap,
-                        present=grid)
+                        present=present_grid)
         if pool_window > 0 else None
     )
     B = cfg.sweep.cube_batch
@@ -458,7 +478,8 @@ def plan_sweep(Ps, bbox_min, bbox_max, image_hw, cfg: Config,
         grid=grid, origins=pad(origins), pair_w=pad(pair_w), uniq_views=pad(uniq_views),
         slot_idx=pad(slot_idx),
         core_bounds=None if core_bounds is None else pad(core_bounds),
-        n=n, n_total=n_total, pool_window=pool_window,
+        n=n, n_total=n_total, n_prefilter=n_prefilter,
+        pool_window=pool_window,
     )
 
 
@@ -518,13 +539,21 @@ def _check_supported(cfg: Config) -> None:
             "port runs 'exact', and the affine vote for 'affine' and "
             "'affine_pallas'"
         )
-    if cfg.fusion.min_component > 1:
-        raise NotImplementedError(
-            f"fusion.min_component={cfg.fusion.min_component}: the "
-            "connected-component denoise is not ported; use 0"
-        )
     if cfg.mesh.block_axis > 1:
-        raise NotImplementedError("the sharded sweep is not ported")
+        raise NotImplementedError(
+            f"mesh.block_axis={cfg.mesh.block_axis}: the sharded sweep is "
+            "not ported (ROADMAP A5); on one card, run the CLI with "
+            "--allow-unsharded")
+
+
+def _flush_metrics(metrics, stats: "SweepStats", wall: float, n: int):
+    metrics.gauge("sweep_wall_s", wall)
+    metrics.gauge("cubes_per_s", n / wall if wall > 0 else 0.0)
+    metrics.flush(extra={
+        "n_cubes_total": stats.n_cubes_total,
+        "n_cubes_after_prefilter": stats.n_cubes_after_prefilter,
+        "n_cubes_nonempty": stats.n_cubes_nonempty,
+    })
 
 
 def run_sweep(
@@ -535,6 +564,8 @@ def run_sweep(
     cfg: Config,
     predictor: Predictor,
     pair_selector: Optional[Callable] = None,
+    ledger_path: Optional[str] = None,
+    metrics=None,
     *,
     device="cuda",
 ) -> Tuple[SparseCubeStore, SweepStats]:
@@ -544,9 +575,13 @@ def run_sweep(
       images: (V, H, W, 3) float in [0, 1]; Ps: (V, 3, 4).
       predictor: (B, D, D, D, 6) x (B, 3) -> (B, D, D, D) on ``device``.
       pair_selector: optional (Ps, origins) -> (pair_idx (N, Nv, 2),
-        pair_w (N, Nv)), called once on the prefilter's survivors with the
+        pair_w (N, Nv)), called once on the cubes to sweep with the
         refined matrices when the prepass ran; default the geometric
         top-Nv selector.
+      ledger_path: JSON-lines resume ledger of the store; the cubes it
+        already holds are not swept again.
+      metrics: optional ``utils/observability.py::Metrics``: the
+        reference's counters and gauges, flushed once at the end.
     """
     dev = resolve_device(device)
     _check_supported(cfg)
@@ -569,6 +604,10 @@ def run_sweep(
             steps_per_level=cfg.sweep.refine_calib_steps,
             n_probes=cfg.sweep.refine_calib_probes, device=dev,
         )
+        if metrics is not None:
+            metrics.gauge("refine_calib_max_shift_px",
+                          stats.refine_info["max_shift_px"])
+            metrics.gauge("refine_calib_passes", stats.refine_info["passes"])
     stats.Ps = np.asarray(Ps)
     t1 = time.perf_counter()
     stats.refine_s = t1 - t0
@@ -576,16 +615,19 @@ def run_sweep(
     pool_window = resolve_pool_window(cfg)
     store = SparseCubeStore(
         scene_origin=np.asarray(bbox_min, np.float64), voxel_size_mm=s,
-        cube_size=D, stride=cfg.voxel.stride,
+        cube_size=D, stride=cfg.voxel.stride, ledger_path=ledger_path,
         # core claiming gives each voxel one owner: no cross-cube vote
         occupancy_vote=0.0 if pool_window > 0 else 0.5,
     )
-    plan = plan_sweep(Ps, bbox_min, bbox_max, hw, cfg, dev, pair_selector)
+    plan = plan_sweep(Ps, bbox_min, bbox_max, hw, cfg, dev, pair_selector,
+                      done=store.done_set())
     stats.n_cubes_total = plan.n_total
-    stats.n_cubes_after_prefilter = plan.n
+    stats.n_cubes_after_prefilter = plan.n_prefilter
     t2 = time.perf_counter()
     stats.plan_s = t2 - t1
     if plan.n == 0:
+        if metrics is not None:  # still record the (zero-cube) run
+            _flush_metrics(metrics, stats, 0.0, 0)
         return store, stats
 
     images_g = gather_images(images_t, gdt)
@@ -623,7 +665,7 @@ def run_sweep(
                 for i in range(3)]
 
     def harvest(b0, out):
-        nb = min(B, n - b0)
+        nb = min(B, n - b0)  # padding rows (copies of row 0) excluded
         rec = out[0].cpu().numpy()
         counts = out[1].cpu().numpy()[:nb]
         occ, fused, color = unpack_compact(rec, counts, D)
@@ -633,6 +675,8 @@ def run_sweep(
         short = np.flatnonzero(got < counts)
         if len(short):
             stats.n_refetched += len(short)
+            if metrics is not None:
+                metrics.count("compact_truncation_refetches", len(short))
             occ[short], fused[short], color[short] = dispatch_rows(b0 + short)
         stats.n_batches += 1
         for i in range(nb):
@@ -640,14 +684,26 @@ def run_sweep(
                 stats.n_cubes_nonempty += 1
             store.add(CubeResult(tuple(plan.grid[b0 + i]), occ[i], fused[i],
                                  color[i]))
+        if metrics is not None:
+            metrics.count("cubes_processed", nb)
+            metrics.count("voxels_occupied", float(occ[:nb].sum()))
+            metrics.gauge("occupancy_rate", metrics.data["voxels_occupied"]
+                          / (metrics.data["cubes_processed"] * D**3))
 
     DEPTH = 3  # batches in flight while the host harvests an older one
     pending = collections.deque()
-    for b0 in range(0, len(plan.origins), B):
-        pending.append((b0, dispatch(b0)))
-        if len(pending) > DEPTH:
+    t_loop = time.perf_counter()
+    # profiler hook: SURFACENET_TORCH_PROFILER_DIR=<dir> captures a trace
+    # of the pipelined batch loop (a no-op otherwise)
+    with trace("run_sweep"):
+        for b0 in range(0, len(plan.origins), B):
+            pending.append((b0, dispatch(b0)))
+            if len(pending) > DEPTH:
+                harvest(*pending.popleft())
+        while pending:
             harvest(*pending.popleft())
-    while pending:
-        harvest(*pending.popleft())
-    stats.sweep_s = time.perf_counter() - t2
+    t_end = time.perf_counter()
+    stats.sweep_s = t_end - t2
+    if metrics is not None:
+        _flush_metrics(metrics, stats, t_end - t_loop, n)
     return store, stats

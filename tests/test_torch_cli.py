@@ -6,6 +6,10 @@ and scene: merged voxel sets agree on >= 0.99 of their union, accuracy and
 completeness within 2%.  ``eval`` against the reference's metrics within
 1e-4 relative (the float32 distance expansion; tests/test_torch_metrics.py).
 The reference sweeps once per scene, shared by the module.
+``reconstruct --min-component`` against the reference's ``.ply`` (same
+count, agreement >= 0.99); ``--sharded`` on one device exits with the
+reference's message unless ``--allow-unsharded``; ``export`` round-trips
+within 1e-5, the reference's self-check bound.
 """
 
 import numpy as np
@@ -204,11 +208,112 @@ def test_eval_cli_matches_reference(tmp_path, protocol):
 
 
 def test_reconstruct_cli_refuses_min_component(tmp_path, scan_dir):
-    """The denoise is not ported: a config that asks for it fails."""
-    with pytest.raises(NotImplementedError, match="min_component"):
-        main(["reconstruct", "--scan", scan_dir, "--out",
-              str(tmp_path / "x.ply"), "--device", "cpu", *TINY,
-              "--set", "fusion.min_component=5"])
+    """``--min-component 5`` (the denoise, once refused) and the ledger
+    through the CLI against the reference's ``cli reconstruct`` on the same
+    scan: the same point count, voxel agreement >= 0.99 (the sweep's
+    parity bound), fewer points than without the denoise; and
+    ``--keep-top-components 1`` keeps one 26-connected cluster."""
+    from surfacenet_tpu.cli import main as jmain
+    from surfacenet_tpu_torch.ops.denoise import connected_components
+
+    args = ["reconstruct", "--scan", scan_dir, *TINY, "--min-component", "5"]
+    jmain(args + ["--out", str(tmp_path / "j.ply")])
+    n, _, _ = main(args + ["--out", str(tmp_path / "t.ply"), "--device",
+                           "cpu", "--ledger", str(tmp_path / "l.jsonl")])
+    pj, pt = read_ply(str(tmp_path / "j.ply"))[0], read_ply(
+        str(tmp_path / "t.ply"))[0]
+    assert n == len(pt) == len(pj) > 50
+    assert voxel_set_agreement(pt, pj) >= 0.99
+    # from the ledger (no sweep), without the denoise, and the largest
+    # cluster alone
+    n_all, st, _ = main(args[:-2] + ["--out", str(tmp_path / "a.ply"),
+                                     "--device", "cpu", "--ledger",
+                                     str(tmp_path / "l.jsonl")])
+    assert st.n_batches == 0 and n_all > n
+    n_top, _, _ = main(args[:-2] + ["--out", str(tmp_path / "k.ply"),
+                                    "--device", "cpu", "--ledger",
+                                    str(tmp_path / "l.jsonl"),
+                                    "--keep-top-components", "1"])
+    top = read_ply(str(tmp_path / "k.ply"))[0]
+    assert 0 < n_top == len(top) < n
+    vox = np.round(top / 2.0 - 0.5).astype(np.int64)  # 2 mm voxels
+    assert len(np.unique(connected_components(vox)[0])) == 1
+
+
+def test_sharded_request_on_one_device(tmp_path, scan_dir, capsys):
+    """``--sharded`` (or ``mesh.block_axis > 1``) on one device exits with
+    the reference's message; ``--allow-unsharded`` then sweeps on one
+    device with the config's other settings."""
+    from surfacenet_tpu.cli import _degrade_or_die as jdegrade
+
+    why = ("sharded sweep needs block_axis=2 to divide the 1 available "
+           "device(s)")
+
+    class Args:
+        allow_unsharded = False
+
+    with pytest.raises(SystemExit) as want:
+        jdegrade(Args, why)
+    out = str(tmp_path / "s.ply")
+    base = ["reconstruct", "--scan", scan_dir, "--out", out, "--device",
+            "cpu", *TINY]
+    for extra in (["--set", "mesh.block_axis=2"],
+                  ["--sharded", "--set", "mesh.block_axis=2"]):
+        with pytest.raises(SystemExit) as got:
+            main(base + extra)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(SystemExit, match="block_axis=1 to divide the 1"):
+        main(base + ["--sharded"])
+    n, stats, _ = main(base + ["--set", "mesh.block_axis=2",
+                               "--allow-unsharded"])
+    assert "running unsharded (--allow-unsharded)" in capsys.readouterr().out
+    assert n == len(read_ply(out)[0]) > 50 and stats.n_batches > 0
+
+
+def test_sharded_request_on_several_cards_raises(monkeypatch):
+    """Where the sharded sweep could run (2 cards, block_axis 2), the port
+    raises instead of sweeping on one card."""
+    from surfacenet_tpu_torch.cli import _single_device_config
+    from surfacenet_tpu_torch.config import baseline_config
+
+    class Args:
+        sharded = allow_unsharded = True
+
+    cfg = baseline_config("highres_sharded")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        _single_device_config(Args, cfg, torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    got = _single_device_config(Args, cfg, torch.device("cuda"))
+    assert got.mesh.block_axis == 1
+    assert got.replace(mesh=cfg.mesh) == cfg
+
+
+def test_export_round_trip_and_fused_refusal(tmp_path):
+    """``cli export`` of a small net on the CPU: the loaded program against
+    the direct forward within 1e-5 (the reference's self-check bound)."""
+    from surfacenet_tpu_torch.config import ModelConfig
+    from surfacenet_tpu_torch.models.convert import save_npz
+    from surfacenet_tpu_torch.models.surfacenet import init_surfacenet
+
+    ckpt = str(tmp_path / "tiny.npz")
+    save_npz(init_surfacenet(ModelConfig.tiny(),
+                             torch.Generator().manual_seed(0)).state_dict(),
+             ckpt)
+    tiny = ["--set", "voxel.cube_size=16",
+            "--set", "model.block_channels=[8,12,16,16]",
+            "--set", "model.convs_per_block=[1,1,1,1]",
+            "--set", "model.side_channels=4"]
+    out = str(tmp_path / "f.pt2")
+    r = main(["export", "--checkpoint", ckpt, "--out", out, "--batch", "2",
+              "--device", "cpu", "--selfcheck", *tiny])
+    assert r["selfcheck_err"] <= 1e-5 and r["bytes"] > 10000
+    prog = torch.export.load(out)
+    x = torch.rand((2, 16, 16, 16, 6)) - 0.5
+    assert prog.module()(x).shape == (2, 16, 16, 16)
+    with pytest.raises(NotImplementedError, match="fused"):
+        main(["export", "--checkpoint", ckpt, "--out", out, "--device",
+              "cpu", *tiny, "--set", "model.fused_inference=true"])
 
 
 def test_entry_points_refuse_missing_cuda(scan_dir, tmp_path, monkeypatch):
@@ -237,6 +342,15 @@ def test_entry_points_refuse_missing_cuda(scan_dir, tmp_path, monkeypatch):
                       str(tmp_path / "y.ply")]),
         lambda: main(["selftest"]),
         lambda: main(["eval", "--pred", "p.ply", "--gt", "g.ply"]),
+        lambda: main(["reconstruct-all", "--scans", scan_dir, "--out-dir",
+                      str(tmp_path / "all")]),
+        lambda: main(["reconstruct", "--colmap", "--scan", scan_dir,
+                      "--out", str(tmp_path / "c.ply")]),
+        lambda: main(["export", "--checkpoint", "w.npz"]),
+        # the native merge's caller, with the ledger and the denoise
+        lambda: main(["reconstruct", "--scan", scan_dir, "--out",
+                      str(tmp_path / "z.ply"), "--ledger",
+                      str(tmp_path / "l.jsonl"), "--min-component", "5"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

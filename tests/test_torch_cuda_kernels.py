@@ -516,3 +516,46 @@ def test_training_without_the_preset_gathers_through_the_kernel(cuda):
                     for k, v in warp_gather.entry_launches.items()}
         assert launched == {"warp_gather_bf16": 0, "warp_gather_f32": 6,
                             "warp_gather_int8": 0}, (chunk, launched)
+
+
+def test_reconstruct_all_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """cli reconstruct-all over two small scans (the sphere and the tori,
+    SampleSet layout, 4 views of 90x120) on the card, through the gather
+    and the vote kernels, against the same on the CPU: voxel agreement
+    >= 0.99 a scan, and both reports score every scan."""
+    from surfacenet_tpu_torch.cli import main
+    from surfacenet_tpu_torch.data.dtu import write_scan_sampleset
+    from surfacenet_tpu_torch.data.synthetic import make_tori_scene
+    from surfacenet_tpu_torch.utils.metrics import voxel_set_agreement
+    from surfacenet_tpu_torch.utils.ply import read_ply, write_ply
+
+    dirs = []
+    os.makedirs(tmp_path / "gt")
+    for i, (name, make) in enumerate((("scan1", make_sphere_scene),
+                                      ("scan4", make_tori_scene))):
+        sc = make(n_views=4, hw=(90, 120))
+        dirs.append(write_scan_sampleset(str(tmp_path / f"set{i}"), name,
+                                         sc.images, sc.Ps))
+        write_ply(str(tmp_path / "gt" / f"{name}.ply"),
+                  sc.surface_points(3000))
+    args = ["reconstruct-all", "--scans", *dirs, "--gt-dir",
+            str(tmp_path / "gt"), "--protocol", "dtu", "--min-component",
+            "5", "--set", "voxel.cube_size=16",
+            "--set", "voxel.voxel_size_mm=2.0", "--set", "voxel.overlap=4",
+            "--set", "fusion.n_view_pairs=2", "--set", "fusion.tau=0.25",
+            "--set", "sweep.cube_batch=8", "--set",
+            "fusion.ray_pool_mode=affine_pallas",
+            "--set", "sweep.use_pallas_gather=true"]
+    before = (warp_gather.launches, affine_vote.launches)
+    card, _ = main(args + ["--out-dir", str(tmp_path / "card")])
+    assert warp_gather.launches > before[0]
+    assert affine_vote.launches > before[1]
+    cpu, _ = main(args + ["--out-dir", str(tmp_path / "cpu"), "--device",
+                          "cpu"])
+    for name in ("scan1", "scan4"):
+        pc = read_ply(str(tmp_path / "card" / f"{name}.ply"))[0]
+        ph = read_ply(str(tmp_path / "cpu" / f"{name}.ply"))[0]
+        assert len(pc) > 50
+        assert voxel_set_agreement(pc, ph) >= 0.99
+        assert "dtu" in card[name] and "dtu" in cpu[name]
+    assert card.keys() == cpu.keys()

@@ -1,0 +1,225 @@
+"""``cli reconstruct-all`` against the reference's, and the sweep's metrics.
+
+Two small scans (the sphere and the tori, 4 views of 90x120) in the DTU
+SampleSet layout, each with its ground-truth ``.ply``, through both
+packages' ``reconstruct-all`` at the CLI tests' TINY settings with
+``--protocol dtu --min-component 5`` (the port on the CPU).  Bounds, those
+of the golden test: per-scan point counts equal, voxel agreement >= 0.99,
+accuracy and completeness within 2%.  The reference sweeps once per scan,
+shared by the module.  ``run_sweep``'s ``Metrics`` record has the
+reference's keys.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from surfacenet_tpu_torch.cli import main
+from surfacenet_tpu_torch.utils.metrics import voxel_set_agreement
+from surfacenet_tpu_torch.utils.ply import read_ply
+
+torch.set_num_threads(2)
+
+TINY = [
+    "--set", "voxel.cube_size=16", "--set", "voxel.voxel_size_mm=2.0",
+    "--set", "voxel.overlap=4", "--set", "fusion.n_view_pairs=2",
+    "--set", "fusion.tau=0.25", "--set", "sweep.cube_batch=8",
+    "--set", "fusion.ray_pool_mode=affine",
+]
+
+# the reference's Metrics record after run_sweep, refinement prepass off
+# (chip_smoke.py holds the port's record at the highres preset, prepass
+# on, to this set plus the two refinement gauges)
+SWEEP_METRICS_KEYS = {
+    "ts", "cubes_processed", "voxels_occupied", "occupancy_rate",
+    "sweep_wall_s", "cubes_per_s", "n_cubes_total",
+    "n_cubes_after_prefilter", "n_cubes_nonempty",
+}
+
+
+@pytest.fixture(scope="module")
+def split(tmp_path_factory):
+    """The split on disk, both packages' reconstruct-all run on it."""
+    from surfacenet_tpu.cli import main as jmain
+    from surfacenet_tpu_torch.data.dtu import write_scan_sampleset
+    from surfacenet_tpu_torch.data.synthetic import (
+        make_sphere_scene, make_tori_scene,
+    )
+    from surfacenet_tpu_torch.utils.ply import write_ply
+
+    root = tmp_path_factory.mktemp("split")
+    dirs, scenes = [], {}
+    for i, (name, make) in enumerate((("scan1", make_sphere_scene),
+                                      ("scan4", make_tori_scene))):
+        sc = make(n_views=4, hw=(90, 120))
+        # one root each: a SampleSet shares one calibration folder
+        dirs.append(write_scan_sampleset(str(root / f"set{i}"), name,
+                                         sc.images, sc.Ps))
+        os.makedirs(root / "gt", exist_ok=True)
+        write_ply(str(root / "gt" / f"{name}.ply"), sc.surface_points(3000))
+        scenes[name] = sc
+    args = ["reconstruct-all", "--scans", *dirs, "--gt-dir",
+            str(root / "gt"), "--protocol", "dtu", "--min-component", "5",
+            *TINY]
+    jmain(args + ["--out-dir", str(root / "j")])
+    report, runs = main(args + ["--out-dir", str(root / "t"),
+                                "--device", "cpu"])
+    return dict(root=root, dirs=dirs, args=args, scenes=scenes,
+                report=report, runs=runs,
+                ref=json.load(open(root / "j" / "report.json")))
+
+
+def test_reconstruct_all_matches_reference(split):
+    root, got, want = split["root"], split["report"], split["ref"]
+    assert json.load(open(root / "t" / "report.json")) == got
+    assert got.keys() == want.keys() == {"scan1", "scan4", "_mean",
+                                         "_mean_dtu"}
+    for name in ("scan1", "scan4"):
+        g, w = got[name], want[name]
+        assert g.keys() == w.keys()
+        assert g["dtu"].keys() == w["dtu"].keys()
+        assert g["points"] == w["points"] > 50
+        assert g["cubes"] == w["cubes"]
+        pt = read_ply(str(root / "t" / f"{name}.ply"))[0]
+        pj = read_ply(str(root / "j" / f"{name}.ply"))[0]
+        assert len(pt) == g["points"]
+        assert voxel_set_agreement(pt, pj) >= 0.99
+        for k in ("acc_mm", "comp_mm", "overall_mm"):
+            np.testing.assert_allclose(g[k], w[k], rtol=0.02, err_msg=k)
+        for k in ("acc_mean_mm", "comp_mean_mm"):
+            np.testing.assert_allclose(g["dtu"][k], w["dtu"][k], rtol=0.02,
+                                       err_msg=k)
+        assert os.path.exists(root / "t" / f"{name}.ledger.jsonl")
+    for k in ("_mean", "_mean_dtu"):
+        assert got[k].keys() == want[k].keys()
+        assert np.isfinite(list(got[k].values())).all()
+
+
+def test_reconstruct_all_resumes_from_its_ledgers(split, capsys):
+    """A second run over the same out-dir sweeps nothing: every cube is in
+    the per-scan ledgers; the report is the first one's."""
+    root = split["root"]
+    report, runs = main(split["args"] + ["--out-dir", str(root / "t"),
+                                         "--device", "cpu"])
+    for name, (stats, _) in runs.items():
+        assert stats.n_batches == 0
+        assert stats.n_cubes_after_prefilter == split["report"][name]["cubes"]
+    strip = {k: {kk: vv for kk, vv in v.items() if kk != "seconds"}
+             for k, v in report.items()}
+    first = {k: {kk: vv for kk, vv in v.items() if kk != "seconds"}
+             for k, v in split["report"].items()}
+    assert strip == first
+    with pytest.raises(SystemExit, match="no scans"):
+        main(["reconstruct-all", "--root", str(root / "none"),
+              "--device", "cpu"])
+
+
+def test_sweep_metrics_keys_match_reference(split, tmp_path):
+    """The reference's run_sweep (its program compiled by the fixture's
+    run) and the port's, each with a Metrics sink, on the same scan."""
+    from surfacenet_tpu.cli import _load_config as jconfig
+    from surfacenet_tpu.pipeline import sweep as J
+    from surfacenet_tpu.utils.observability import Metrics as JMetrics
+    from surfacenet_tpu_torch.cli import _load_config as tconfig
+    from surfacenet_tpu_torch.pipeline import sweep as T
+    from surfacenet_tpu_torch.utils.observability import Metrics
+
+    from surfacenet_tpu_torch.geometry.camera import (
+        estimate_bbox_from_cameras,
+    )
+
+    sc = split["scenes"]["scan1"]
+    # reconstruct-all's bbox: the reference's compiled program fits it
+    lo, hi = estimate_bbox_from_cameras(sc.Ps)
+    a = dict(images=sc.images, Ps=sc.Ps, bbox_min=lo, bbox_max=hi)
+
+    class Args:
+        preset = config = None
+        set = TINY[1::2]
+
+    jm, tm = JMetrics(str(tmp_path / "j.jsonl")), Metrics(
+        str(tmp_path / "t.jsonl"))
+    _, js = J.run_sweep(cfg=jconfig(Args), predictor=J.
+                        photoconsistency_predictor, metrics=jm, **a)
+    _, ts = T.run_sweep(cfg=tconfig(Args), predictor=T.
+                        photoconsistency_predictor, metrics=tm,
+                        device="cpu", **a)
+    jrec = json.loads(open(tmp_path / "j.jsonl").read())
+    trec = json.loads(open(tmp_path / "t.jsonl").read())
+    assert set(jrec) == set(trec) == SWEEP_METRICS_KEYS
+    for k in ("cubes_processed", "n_cubes_total", "n_cubes_after_prefilter",
+              "n_cubes_nonempty"):
+        assert trec[k] == jrec[k], k
+    assert abs(trec["voxels_occupied"] / jrec["voxels_occupied"] - 1) < 0.01
+
+
+def test_run_sweep_counts_truncation_refetches(tmp_path):
+    """compact_k 20 truncates cubes: the re-fetch counter joins the record
+    (the reference's ``compact_truncation_refetches``)."""
+    from surfacenet_tpu_torch.cli import _load_config
+    from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
+    from surfacenet_tpu_torch.pipeline import sweep as T
+    from surfacenet_tpu_torch.utils.observability import Metrics
+
+    class Args:
+        preset = config = None
+        set = TINY[1::2] + ["sweep.compact_k=20"]
+
+    sc = make_sphere_scene(n_views=4, hw=(90, 120))
+    m = Metrics(str(tmp_path / "m.jsonl"))
+    store, stats = T.run_sweep(sc.images, sc.Ps, sc.bbox_min, sc.bbox_max,
+                               _load_config(Args),
+                               T.photoconsistency_predictor, metrics=m,
+                               device="cpu")
+    rec = json.loads(open(tmp_path / "m.jsonl").read())
+    assert set(rec) == SWEEP_METRICS_KEYS | {"compact_truncation_refetches"}
+    assert rec["compact_truncation_refetches"] == stats.n_refetched > 0
+    assert rec["cubes_processed"] == stats.n_cubes_after_prefilter
+    occ = sum(int(r.occupancy.sum()) for r in store._cubes.values())
+    assert rec["voxels_occupied"] == occ
+    np.testing.assert_allclose(
+        rec["occupancy_rate"], occ / (rec["cubes_processed"] * 16**3))
+
+
+def test_scan_sampleset_layout_matches_reference(tmp_path):
+    from surfacenet_tpu.data import dtu as JD
+    from surfacenet_tpu_torch.data import dtu as TD
+    from surfacenet_tpu_torch.data.synthetic import make_sphere_scene
+
+    assert TD.DTU_EVAL_SCANS == JD.DTU_EVAL_SCANS
+    sc = make_sphere_scene(n_views=3, hw=(30, 40))
+    for writer in (JD, TD):
+        root = str(tmp_path / writer.__name__.split(".")[0])
+        d = writer.write_scan_sampleset(root, "scan9", sc.images, sc.Ps)
+        assert d == os.path.join(root, "Rectified", "scan9")
+        t, j = TD.load_scan(d), JD.load_scan(d)
+        np.testing.assert_array_equal(t.images, j.images)
+        np.testing.assert_array_equal(t.Ps, j.Ps)
+        np.testing.assert_allclose(t.Ps, sc.Ps, rtol=1e-9)
+        assert t.name == j.name == "scan9" and t.bbox_min is None
+    assert sorted(os.listdir(tmp_path / "surfacenet_tpu" / "Rectified" /
+                             "scan9")) == sorted(
+        os.listdir(tmp_path / "surfacenet_tpu_torch" / "Rectified" / "scan9"))
+
+
+def test_reconstruct_all_loads_the_pair_net_once(split, tmp_path,
+                                                 monkeypatch):
+    """``--pairnet``: the pair net is read once for the split, and each
+    scan gets its own learned selector (on its own images)."""
+    from surfacenet_tpu_torch.train import train_pair
+
+    shipped = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "weights_torch", "pairnet_10000.npz")
+    reads, real = [], train_pair.restore_pairnet
+    monkeypatch.setattr(train_pair, "restore_pairnet",
+                        lambda *a, **k: reads.append(a) or real(*a, **k))
+    report, runs = main(["reconstruct-all", "--scans", *split["dirs"],
+                         "--out-dir", str(tmp_path), "--pairnet", shipped,
+                         "--device", "cpu", *TINY])
+    assert len(reads) == 1
+    for name in ("scan1", "scan4"):
+        assert report[name]["points"] > 50
+        assert runs[name][0].n_batches > 0

@@ -66,7 +66,10 @@ def test_port_imports_without_jax_pil_or_reference_package():
     # the modules that replace PIL and the JAX package's metrics
     assert {"surfacenet_tpu_torch.data.png", "surfacenet_tpu_torch.data.dtu",
             "surfacenet_tpu_torch.utils.metrics",
-            "surfacenet_tpu_torch.cli"} <= names
+            "surfacenet_tpu_torch.cli", "surfacenet_tpu_torch.native",
+            "surfacenet_tpu_torch.ops.denoise",
+            "surfacenet_tpu_torch.data.colmap",
+            "surfacenet_tpu_torch.utils.observability"} <= names
 
 
 def test_sources_name_no_reference_imports():

@@ -238,7 +238,9 @@ def test_cli_train_pairnet_then_reconstruct(tmp_path):
     with pytest.raises(FileNotFoundError):
         cli.main(base + ["--out", out, "--pairnet",
                          str(tmp_path / "missing.npz")])
-    with pytest.raises(NotImplementedError):  # the sharded sweep: not ported
+    # the sharded sweep on one device: the reference's exit unless
+    # --allow-unsharded (tests/test_torch_cli.py drives both)
+    with pytest.raises(SystemExit, match="--allow-unsharded"):
         cli.main(base + ["--out", out, "--pairnet", SHIPPED,
                          "--set", "mesh.block_axis=2"])
 

@@ -275,9 +275,14 @@ def test_run_sweep_with_refinement_and_kernel_path_config(scene):
 
 def test_sweep_rejects_unported_branches(scene):
     _, tcfg = _configs()
-    for fusion in (dict(fusion_mode="median"), dict(min_component=2),
-                   dict(ray_pool_mode="affine_matmul")):
-        bad = tcfg.replace(fusion=dataclasses.replace(tcfg.fusion, **fusion))
+    for bad in (
+        tcfg.replace(fusion=dataclasses.replace(tcfg.fusion,
+                                                fusion_mode="median")),
+        tcfg.replace(fusion=dataclasses.replace(
+            tcfg.fusion, ray_pool_mode="affine_matmul")),
+        # the sharded sweep; the CLI strips it under --allow-unsharded
+        tcfg.replace(mesh=dataclasses.replace(tcfg.mesh, block_axis=2)),
+    ):
         with pytest.raises(NotImplementedError):
             T.run_sweep(scene.images, scene.Ps, scene.bbox_min,
                         scene.bbox_max, bad, T.photoconsistency_predictor,
