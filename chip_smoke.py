@@ -150,12 +150,36 @@ the run with a non-zero exit code and no result line):
       loaded program within 1e-5 of the direct forward; every sweep of
       (a)-(d) must launch one bf16 gather and one tile-route vote a batch
       at least;
-  18. the result line.
+  18. the sharded paths on one card, two ranks: this script started
+      twice more as ``--rank-job`` with the torchrun environment
+      (``parallel/distributed.py::launch_local``: spawned processes, 300 s
+      at most, a failed rank fails the phase; gloo, as the ranks share
+      the card), each running (a) ``cli reconstruct --sharded --preset
+      dtu9_full --set mesh.block_axis=2 --ledger DIR`` on phase 10's scan
+      with phase 10's seeded checkpoint and ``fusion.tau=0.5``: fails
+      unless its ``.ply`` agrees >= 0.999 with the same configuration in
+      this process (the sharded sweep on a grid of one rank), and unless
+      each rank launched the gather (bf16 entry) and the vote (``tile``)
+      exactly once a batch and once a dense re-fetch; rounds, per-block
+      cubes, cubes/s, the prepass and the efficiency against one rank
+      (two ranks time-share the card: not a scaling result) reported;
+      (c) ``cli train --sharded --synthetic sphere --preset dtu9_full``,
+      6 steps in chunks of 3, float32 then bf16, against the same
+      command in this process: float32 losses within 1e-3 and parameters
+      within 1e-4 (the bf16 run's differences reported), one gather launch
+      a step on each rank, ms a step of the last chunk; (d) a halo
+      exchange of a (16, 8, 8) volume in two blocks: exact; and in this
+      process (b) ``ray_max_mask_affine_matmul`` on phase 9's items
+      against ``ray_max_mask_affine_cuda`` at windows 0 and 2: bitwise
+      (its time reported), and ``run_sweep`` with ``ray_pool_mode``
+      ``affine_matmul`` against ``affine_pallas`` (dtu9_full, prepass off,
+      the photoconsistency predictor): equal point sets;
+  19. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  Writes only to a temporary directory and to the
-package's git-ignored build directory; its one worker process ends with
-the script.  Needs no PIL.
+package's git-ignored build directory; its worker process and phase 18's
+two rank processes end before the script does.  Needs no PIL.
 """
 
 import concurrent.futures
@@ -180,7 +204,9 @@ from surfacenet_tpu_torch.data.synthetic import (
     make_occluded_scene, make_sphere_scene, make_tori_scene,
 )
 from surfacenet_tpu_torch.geometry.camera import project_rows
-from surfacenet_tpu_torch.models.convert import save_npz
+from surfacenet_tpu_torch.models.convert import (
+    load_npz, load_surfacenet, save_npz,
+)
 from surfacenet_tpu_torch.models.surfacenet import (
     forward_flops, fused_infer_apply, fused_params, init_surfacenet,
     make_predictor,
@@ -201,17 +227,22 @@ from surfacenet_tpu_torch.ops.cvc import (
     build_cvc_batch, build_cvc_views, pair_views,
 )
 from surfacenet_tpu_torch.ops.ray_pooling import (
-    item_params, ray_max_mask_affine_batch, ray_max_mask_affine_plain,
-    ray_vote_affine_plain, vote_params,
+    item_params, ray_max_mask_affine_batch, ray_max_mask_affine_matmul,
+    ray_max_mask_affine_plain, ray_vote_affine_plain, vote_params,
 )
 from surfacenet_tpu_torch.ops.view_pairs import (
     consensus_gates, crop_centers, cube_view_consensus,
     select_pairs_learned_local,
 )
+from surfacenet_tpu_torch.parallel.distributed import (
+    all_reduce_, init_distributed, launch_local, process_info,
+)
+from surfacenet_tpu_torch.parallel.halo import halo_exchange
+from surfacenet_tpu_torch.parallel.mesh import make_mesh
 from surfacenet_tpu_torch.pipeline.sweep import (
     cube_batch_step, enumerate_cubes, gather_images,
     photoconsistency_predictor, plan_sweep, pool_views_for, prefilter_cubes,
-    resolve_pool_window,
+    resolve_pool_window, run_sweep,
 )
 from surfacenet_tpu_torch.train import train_pair, train_surface
 from surfacenet_tpu_torch.train.train_pair import restore_pairnet
@@ -219,6 +250,7 @@ from surfacenet_tpu_torch.train.losses import class_balanced_bce
 from surfacenet_tpu_torch.utils.metrics import (
     accuracy_completeness, voxel_set_agreement,
 )
+from surfacenet_tpu_torch.utils.observability import scaling_efficiency
 from surfacenet_tpu_torch.utils.ply import read_ply, write_ply
 
 # the shipped pair net, converted (models/convert.py)
@@ -1152,11 +1184,302 @@ def eval_split_phase(dev, tmp, scene, scan_dir, tori):
     return out, launches
 
 
+class timed_chunks:
+    """Within the block, the wall seconds of every ``train_steps_scan``
+    chunk (synchronised before and after) are appended to ``self.s``."""
+
+    def __enter__(self):
+        self.s, self.real = [], train_surface.train_steps_scan
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.real(*args, **kw)
+            torch.cuda.synchronize()
+            self.s.append(time.perf_counter() - t0)
+            return out
+
+        train_surface.train_steps_scan = timed
+        return self
+
+    def __exit__(self, *exc):
+        train_surface.train_steps_scan = self.real
+
+
+def rank_job(path) -> int:
+    """One rank of phase 18, ``python3 chip_smoke.py --rank-job JOB``:
+    started with the torchrun environment by ``launch_local``; runs the
+    job's ``cli reconstruct --sharded``, then its two ``cli train
+    --sharded`` runs, then a halo exchange on the card, each with the
+    kernels' counts set to 0 before it, and writes what it read to
+    ``<out>/rank<r>.json``."""
+    with open(path) as f:
+        job = json.load(f)
+    dev = torch.device(job["device"])
+    if not init_distributed(device=dev):
+        raise SystemExit("--rank-job needs the torchrun environment")
+    rank = process_info()[0]
+    res = {"rank": rank}
+
+    reset_counts()
+    t0 = time.perf_counter()
+    n, st, tm = cli.main(job["reconstruct"])
+    torch.cuda.synchronize()
+    res["reconstruct"] = {
+        "wall_s": time.perf_counter() - t0, "points": n, "stages": tm,
+        "rounds": st.n_rounds, "batches": st.n_batches,
+        "refetch_batches": st.n_refetch_batches, "refetched": st.n_refetched,
+        "per_block_cubes": st.per_block_cubes, "cubes_per_s": st.cubes_per_s,
+        "rounds_wall_s": st.wall_s, "refine_s": st.refine_s,
+        "cubes": st.n_cubes_after_prefilter, "launches": launch_counts()}
+
+    for name in ("train_f32", "train_bf16"):
+        reset_counts()
+        t0 = time.perf_counter()
+        with timed_chunks() as chunks:
+            state, log_ = cli.main(job[name])
+        res[name] = {
+            "wall_s": time.perf_counter() - t0, "losses": log_.losses,
+            "chunk_s": chunks.s,
+            # the last chunk: warm, its sampling included
+            "ms_per_step": chunks.s[-1] * 1e3 / job["chunk"],
+            "gather_launches": warp_gather.entry_launches["warp_gather_bf16"],
+            "steps": state.step}
+
+    # what the gloo route costs a training step: the gradient all-reduce
+    # (every parameter, float32) and a BatchNorm layer's statistics
+    # all-reduce (two per layer a step: forward and backward), each staged
+    # through the host
+    n_par = sum(p.numel() for p in state.model.parameters())
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm3d)
+               for m in state.model.modules())
+    big = torch.ones(n_par, device=dev)
+    small = torch.ones(2 * 256 + 1, dtype=torch.float64, device=dev)
+
+    def reduce_ms(t, n):
+        all_reduce_(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            all_reduce_(t)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    res["collectives"] = {"params": n_par, "batchnorm_layers": n_bn,
+                          "grad_all_reduce_ms": reduce_ms(big, 5),
+                          "bn_all_reduce_ms": reduce_ms(small, 20)}
+
+    mesh = make_mesh(2)
+    vol = torch.arange(16 * 8 * 8, dtype=torch.float32,
+                       device=dev).reshape(16, 8, 8)
+    b, h = mesh.block, 2
+    got = halo_exchange(mesh, vol[b * 8:(b + 1) * 8], h)
+    zero = torch.zeros((h, 8, 8), device=dev)
+    want = torch.cat([vol[b * 8 - h:b * 8] if b else zero,
+                      vol[b * 8:(b + 1) * 8],
+                      vol[(b + 1) * 8:(b + 1) * 8 + h] if b == 0 else zero])
+    res["halo"] = {"exact": bool(torch.equal(got, want)),
+                   "shape": list(got.shape), "device": got.device.type}
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_phase(dev, tmp, scene, scan_dir, npz, mask_items):
+    """Phase 18: the sharded paths on one card, two ranks (gloo: they
+    share the card).  Returns the phase's readings and each rank's
+    kernel launches."""
+    cfg = baseline_config("dtu9_full")
+    D, s = cfg.voxel.cube_size, cfg.voxel.voxel_size_mm
+    window = resolve_pool_window(cfg)
+    shard = f"{tmp}/shard"
+    os.makedirs(shard)
+    out = {}
+
+    # (a) the same configuration in one process, through the sharded
+    # sweep on a grid of one rank (its cubes/s is what 2 ranks scale on)
+    t0 = time.perf_counter()
+    cfg_a = cfg.replace(fusion=dataclasses.replace(cfg.fusion, tau=0.5))
+    predictor = make_predictor(load_surfacenet(npz, cfg.model), cfg.model,
+                               dev)
+    n_one, st_one, tm_one = reconstruct_scan(
+        load_scan(scan_dir), cfg_a, predictor, f"{shard}/one.ply", dev,
+        ledger_path=f"{shard}/one_ledgers", sharded=True)
+    torch.cuda.synchronize()
+    one = {"wall_s": time.perf_counter() - t0, "points": n_one,
+           "stages": tm_one, "rounds": st_one.n_rounds,
+           "cubes_per_s": st_one.cubes_per_s, "refine_s": st_one.refine_s}
+    log(f"(a) one rank: {json.dumps(one)}")
+    del predictor
+
+    net = ["--preset", "dtu9_full", "--set", "train.scan_chunk=3",
+           "--synthetic", "sphere", "--steps", "6", "--log-every", "1",
+           "--device", dev.type]
+    f32 = ["--set", 'model.dtype="float32"']
+    job = {
+        "out": shard, "chunk": 3, "device": dev.type,
+        "reconstruct": [
+            "reconstruct", "--sharded", "--scan", scan_dir, "--out",
+            f"{shard}/two.ply", "--preset", "dtu9_full", "--checkpoint", npz,
+            "--set", "fusion.tau=0.5", "--set", "mesh.block_axis=2",
+            "--ledger", f"{shard}/two_ledgers", "--device", dev.type],
+        "train_f32": ["train", "--sharded", *net, *f32, "--checkpoint-dir",
+                      f"{shard}/ck_f32_2"],
+        "train_bf16": ["train", "--sharded", *net, "--checkpoint-dir",
+                       f"{shard}/ck_bf16_2"],
+    }
+    with open(f"{shard}/job.json", "w") as f:
+        json.dump(job, f)
+    t0 = time.perf_counter()
+    outs = launch_local([sys.executable, os.path.abspath(__file__),
+                         "--rank-job", f"{shard}/job.json"], 2, 300)
+    ranks_s = time.perf_counter() - t0
+    for r, o in enumerate(outs):
+        for line in o.splitlines():
+            if line.startswith(("process group", "sharded sweep", "wrote",
+                                "rank ", "trained")):
+                log(f"  rank {r}: {line}")
+    ranks = []
+    for r in (0, 1):
+        with open(f"{shard}/rank{r}.json") as f:
+            ranks.append(json.load(f))
+    rec = [x["reconstruct"] for x in ranks]
+    pa = read_ply(f"{shard}/one.ply")[0]
+    pb = read_ply(f"{shard}/two.ply")[0]
+    agree = voxel_set_agreement(pb, pa)
+    eff = scaling_efficiency({1: st_one.cubes_per_s,
+                              2: rec[0]["cubes_per_s"]})
+    out["reconstruct"] = {
+        "one_rank": one, "ranks": rec, "ranks_wall_s": ranks_s,
+        "points": len(pb), "voxel_agreement": agree,
+        # two ranks time-share one card: not a scaling result
+        "time_shared_scaling_efficiency": eff[2]}
+    log(f"(a) two ranks: agreement {agree:.6f}, points {len(pb)} vs "
+        f"{len(pa)}, rounds {rec[0]['rounds']}, per-block cubes "
+        f"{rec[0]['per_block_cubes']}, cubes/s {rec[0]['cubes_per_s']:.2f} "
+        f"(one rank {st_one.cubes_per_s:.2f}; time-shared card, not a "
+        f"scaling result: efficiency {eff[2]:.3f}), prepass "
+        f"{rec[0]['refine_s']:.2f} s, both ranks {ranks_s:.1f} s")
+    if agree < 0.999 or len(pb) == 0:
+        raise RuntimeError(f"sharded .ply agreement {agree} < 0.999")
+    for r, x in enumerate(rec):
+        L = x["launches"]
+        want = x["batches"] + x["refetch_batches"]
+        log(f"(a) rank {r}: {x['batches']} batch(es) + "
+            f"{x['refetch_batches']} re-fetch(es); launches {json.dumps(L)}")
+        if (x["batches"] <= 0 or L["warp_gather"] != want
+                or L["warp_gather_bf16"] != want
+                or L["affine_vote"] != want
+                or L["affine_vote_routes"]["tile"] != want):
+            raise RuntimeError(f"rank {r}: gather and vote launches are not "
+                               f"its rounds plus re-fetches ({want}): {L}")
+
+    # (b) the matmul form of the mask against the mask kernel, bitwise,
+    # on the first fused batch's items (phase 9's), and a short sweep
+    probs_i, orig_i, Ps_i = mask_items
+    out["affine_matmul"] = []
+    for w in (0, window):
+        mm = ray_max_mask_affine_matmul(probs_i, orig_i, s, Ps_i, w)
+        mk = ray_max_mask_affine_cuda(probs_i, orig_i, s, Ps_i, w)
+        equal = torch.equal(mm, mk)
+        mm_ms = cuda_ms(lambda: ray_max_mask_affine_matmul(
+            probs_i, orig_i, s, Ps_i, w), iters=3, warmup=1)
+        k_ms = cuda_ms(lambda: ray_max_mask_affine_cuda(
+            probs_i, orig_i, s, Ps_i, w), iters=20)
+        run = {"window": w, "items": int(probs_i.shape[0]),
+               "bitwise_equal": equal, "ms": mm_ms, "kernel_entry_ms": k_ms}
+        out["affine_matmul"].append(run)
+        log(f"(b) affine_matmul {json.dumps(run)}")
+        if not equal:
+            raise RuntimeError(f"the affine_matmul mask differs from the "
+                               f"mask kernel's at window {w}")
+        del mm, mk
+    pts = {}
+    for mode in ("affine_pallas", "affine_matmul"):
+        c = cfg.replace(
+            fusion=dataclasses.replace(cfg.fusion, ray_pool_mode=mode),
+            sweep=dataclasses.replace(cfg.sweep, refine_calib=False))
+        t0 = time.perf_counter()
+        st, stats = run_sweep(scene.images, scene.Ps, scene.bbox_min,
+                              scene.bbox_max, c, photoconsistency_predictor,
+                              device=dev)
+        torch.cuda.synchronize()
+        p = st.merge()[0]
+        pts[mode] = p[np.lexsort(p.T)]
+        out[f"sweep_{mode}"] = {"wall_s": time.perf_counter() - t0,
+                                "sweep_s": stats.sweep_s,
+                                "points": len(p)}
+    same = bool(np.array_equal(pts["affine_pallas"], pts["affine_matmul"]))
+    out["sweep_point_sets_equal"] = same
+    log(f"(b) sweeps: affine_pallas {json.dumps(out['sweep_affine_pallas'])}"
+        f", affine_matmul {json.dumps(out['sweep_affine_matmul'])}, equal "
+        f"point sets {same}")
+    if not same or len(pts["affine_matmul"]) == 0:
+        raise RuntimeError("the affine_matmul sweep's points differ")
+
+    # (c) data-parallel training against one process, float32 and bf16
+    for name, extra in (("f32", f32), ("bf16", [])):
+        ck = f"{shard}/ck_{name}_1"
+        with timed_chunks() as chunks:
+            state, log1 = cli.main(["train", *net, *extra,
+                                    "--checkpoint-dir", ck])
+        got = load_npz(f"{shard}/ck_{name}_2/step_6/model.npz")
+        want = load_npz(f"{ck}/step_6/model.npz")
+        d_par = max(float((got[k] - v).abs().max()) for k, v in want.items()
+                    if "running" not in k)
+        d_run = max(float((got[k] - v).abs().max()) for k, v in want.items()
+                    if "running" in k)
+        runs = [x[f"train_{name}"] for x in ranks]
+        d_loss = max(abs(a - b) for x in runs
+                     for a, b in zip(x["losses"], log1.losses))
+        out[f"train_{name}"] = {
+            "ranks": runs, "one_rank_losses": log1.losses,
+            "one_rank_ms_per_step": chunks.s[-1] * 1e3 / job["chunk"],
+            "max_loss_diff": d_loss, "max_param_diff": d_par,
+            "max_running_stat_diff": d_run}
+        log(f"(c) train {name}: losses {[round(v, 5) for v in log1.losses]}"
+            f"; |loss diff| {d_loss:.3e}, |param diff| {d_par:.3e}, "
+            f"|running stat diff| {d_run:.3e}; ms a step (last chunk) "
+            f"{[round(x['ms_per_step'], 2) for x in runs]} (one rank "
+            f"{out[f'train_{name}']['one_rank_ms_per_step']:.2f}); gather "
+            f"launches {[x['gather_launches'] for x in runs]}")
+        if any(x["steps"] != 6 or x["gather_launches"] != 6 for x in runs):
+            raise RuntimeError(f"train {name}: not 6 steps with one gather "
+                               f"launch each on every rank: {runs}")
+        if name == "f32" and (d_loss > 1e-3 or d_par > 1e-4):
+            raise RuntimeError(f"data-parallel float32 training differs from "
+                               f"one process: loss {d_loss}, params {d_par}")
+
+    out["collectives"] = [x["collectives"] for x in ranks]
+    c = out["collectives"][0]
+    log(f"(c) gloo through the host, rank 0: gradient all-reduce "
+        f"({c['params']} float32) {c['grad_all_reduce_ms']:.2f} ms, a "
+        f"BatchNorm statistics all-reduce {c['bn_all_reduce_ms']:.3f} ms x "
+        f"2 x {c['batchnorm_layers']} layers a step")
+
+    # (d) the halo exchange between the two ranks, on the card
+    out["halo"] = [x["halo"] for x in ranks]
+    log(f"(d) halo {json.dumps(out['halo'])}")
+    if not all(h["exact"] and h["device"] == dev.type for h in out["halo"]):
+        raise RuntimeError(f"the halo exchange is not exact: {out['halo']}")
+    launches = {f"{k}_rank{r}": v for r, x in enumerate(ranks) for k, v in (
+        ("reconstruct", x["reconstruct"]["launches"]),)}
+    for r, x in enumerate(ranks):
+        for name in ("f32", "bf16"):
+            launches[f"train_{name}_rank{r}"] = {
+                "warp_gather": x[f"train_{name}"]["gather_launches"],
+                "affine_vote": 0}
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-job"]:
+        return rank_job(sys.argv[2])
     # one worker process renders phase 17's tori on the host while the
     # card runs phases 4-16; leaving the block terminates it
     with multiprocessing.get_context("spawn").Pool(1, os.nice,
@@ -1518,7 +1841,8 @@ def run(pool) -> int:
         raise RuntimeError(f"ray_max_mask_affine_cuda launched the kernel "
                            f"{pool_launches} times for {len(windows)} calls")
     pool_main = pool_runs[-1]  # the sweep's own window
-    del probs_i, masks, fused_f
+    mask_items = (probs_i, orig_i, Ps_i)  # phase 18 (b)'s
+    del masks, fused_f
     torch.cuda.empty_cache()
 
     phase(10, "main path, int8 gather: a scan on disk through cli "
@@ -1781,6 +2105,17 @@ def run(pool) -> int:
                                              tori)
     log(f"eval-split phase {time.perf_counter() - t0:.1f} s")
 
+    phase(18, "the sharded paths on one card, two ranks: cli reconstruct "
+          "--sharded (dtu9_full, block_axis 2), the affine_matmul mask and "
+          "sweep, cli train --sharded (float32 and bf16), the halo "
+          "exchange")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded, sharded_launches = sharded_phase(dev, tmp.name, scene, scan_dir,
+                                              npz, mask_items)
+    del mask_items
+    log(f"sharded phase {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -1796,6 +2131,9 @@ def run(pool) -> int:
             "eval_split_path_launches": {
                 k: v["warp_gather"] for k, v in split_launches.items()},
             "eval_split": split,
+            "sharded_path_launches": {
+                k: v["warp_gather"] for k, v in sharded_launches.items()},
+            "sharded": sharded,
         },
         {
             "name": "affine_vote", "route": "cuda",
@@ -1813,6 +2151,8 @@ def run(pool) -> int:
                 k: v["affine_vote"] for k, v in occ_launches.items()},
             "eval_split_path_launches": {
                 k: v["affine_vote"] for k, v in split_launches.items()},
+            "sharded_path_launches": {
+                k: v["affine_vote"] for k, v in sharded_launches.items()},
         },
         {
             "name": "conv3d", "route": "cuda",
@@ -1860,7 +2200,7 @@ def run(pool) -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(18, "result")
+    phase(19, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,11 +31,19 @@ each cube's pairs with the cube-local learned selector; without it the
 geometric selector runs.  ``--colmap`` reads ``--scan`` as a COLMAP text
 model (``data/colmap.py``).  ``--ledger`` makes the sweep restartable:
 a killed run resumes from the cubes the ledger holds.  ``--sharded`` (or a
-config with ``mesh.block_axis > 1``, as ``highres_sharded``) asks for the
-sharded sweep, which is not ported (ROADMAP A5): on fewer than 2 cards
-(or a block count that does not divide them) the command exits unless
-``--allow-unsharded`` accepts the single-device sweep with the config's
-other settings.  ``reconstruct-all`` sweeps every scan of an eval split
+config with ``mesh.block_axis > 1``, as ``highres_sharded``) runs the
+sharded sweep (``parallel/sweep_sharded.py``) over the ranks of a process
+group, one process a rank, started as torchrun starts them:
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m surfacenet_tpu_torch.cli reconstruct --sharded ...
+
+(``--ledger`` then names a directory of per-block ledgers; rank 0 writes
+the ``.ply``, reports, metrics and checkpoints).  In a world of fewer than
+2 ranks, or of a size ``mesh.block_axis`` does not divide, the command
+exits unless ``--allow-unsharded`` accepts the single-device sweep with
+the config's other settings.  ``train --sharded`` trains data parallel
+over the ranks.  ``reconstruct-all`` sweeps every scan of an eval split
 (one ledger and one ``.ply`` per scan, ``report.json`` with per-scan and
 split-mean metrics against ``--gt-dir``).  ``export`` writes the trained
 forward as a ``torch.export`` program with the weights in it
@@ -255,24 +263,25 @@ def _degrade_or_die(args, why: str) -> None:
     )
 
 
-def _single_device_config(args, cfg, dev):
-    """``cfg`` for the single-device sweep, or the reference's exit.
+def _sweep_layout(args, cfg, dev):
+    """(cfg, sharded): whether the sweep runs sharded, and its config.
 
-    ``--sharded`` or ``mesh.block_axis > 1`` asks for the sharded sweep.
-    Where it could not run (fewer than 2 devices, or a block count that
-    does not divide them; ``--device cpu`` counts 1), ``_degrade_or_die``
-    exits unless ``--allow-unsharded`` accepts the single-device sweep,
-    which then runs with ``block_axis`` 1 and the config's other settings.
-    Where it could run, the port raises: the sharded sweep is not ported,
-    and a silent one-card sweep would hide that.  (The reference's
-    per-process export branch has no counterpart: the port runs one
-    process.)
+    ``--sharded`` or ``mesh.block_axis > 1`` asks for the sharded sweep:
+    the process group is joined here, before the first device touch.
+    Where the sweep could not run sharded (a world of fewer than 2 ranks,
+    or one ``block_axis`` does not divide; no process group counts 1),
+    ``_degrade_or_die`` exits unless ``--allow-unsharded`` accepts the
+    single-device sweep, which then runs with ``block_axis`` 1 and the
+    config's other settings.
     """
     if not (args.sharded or cfg.mesh.block_axis > 1):
-        return cfg
-    import torch
+        return cfg, False
+    from surfacenet_tpu_torch.parallel.distributed import (
+        init_distributed, process_info,
+    )
 
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    init_distributed(device=dev)
+    n_dev = process_info()[1]
     n_block = max(cfg.mesh.block_axis, 1)
     if n_dev < 2 or n_dev % n_block != 0:
         _degrade_or_die(
@@ -280,15 +289,21 @@ def _single_device_config(args, cfg, dev):
             f"sharded sweep needs block_axis={n_block} to divide the "
             f"{n_dev} available device(s)",
         )
-        return cfg.replace(mesh=dataclasses.replace(cfg.mesh, block_axis=1))
-    raise NotImplementedError(
-        f"the sharded sweep over {n_dev} devices (block_axis={n_block}) is "
-        "not ported (ROADMAP A5); the port sweeps on one card")
+        return (cfg.replace(mesh=dataclasses.replace(cfg.mesh, block_axis=1)),
+                False)
+    return cfg, True
+
+
+def _rank() -> int:
+    from surfacenet_tpu_torch.parallel.distributed import process_info
+
+    return process_info()[0]
 
 
 def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda",
                      pair_selector=None, ledger_path=None, metrics=None,
-                     min_component=None, keep_top_components=None):
+                     min_component=None, keep_top_components=None,
+                     sharded=False):
     """Sweep a loaded scan and write the merged point cloud to ``out``.
 
     ``scan`` has images (V, H, W, 3), Ps (V, 3, 4) and bbox_min/bbox_max
@@ -296,11 +311,17 @@ def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda",
     ``ledger_path`` and ``metrics`` as ``run_sweep``'s; the export drops
     26-connected clusters below ``min_component`` voxels (None:
     ``cfg.fusion.min_component``) and keeps the ``keep_top_components``
-    largest.  Returns (points written, SweepStats, {stage: wall seconds}).
+    largest.  With ``sharded`` every rank of the process group calls this:
+    ``run_sweep_sharded`` sweeps (``ledger_path`` is then its directory of
+    block ledgers) and rank 0 alone writes ``out``.  Returns (points
+    written, None on the other ranks; SweepStats; {stage: wall seconds}).
     """
     from surfacenet_tpu_torch.device import resolve_device
     from surfacenet_tpu_torch.geometry.camera import (
         estimate_bbox_from_cameras,
+    )
+    from surfacenet_tpu_torch.parallel.sweep_sharded import (
+        run_sweep_sharded,
     )
     from surfacenet_tpu_torch.pipeline.sweep import run_sweep
 
@@ -312,19 +333,33 @@ def reconstruct_scan(scan, cfg, predictor, out: str, device="cuda",
             f"no bbox given; estimated from cameras: "
             f"{np.round(bbox_min, 1)} .. {np.round(bbox_max, 1)}"
         )
-    store, stats = run_sweep(
-        scan.images, scan.Ps, bbox_min, bbox_max, cfg, predictor,
-        pair_selector, ledger_path, metrics, device=dev,
-    )
+    if sharded:
+        store, stats = run_sweep_sharded(
+            scan.images, scan.Ps, bbox_min, bbox_max, cfg, predictor,
+            pair_selector=pair_selector, ledger_dir=ledger_path,
+            metrics=metrics, device=dev,
+        )
+        print(f"sharded sweep: {stats.n_rounds} rounds, "
+              f"{stats.cubes_per_s:.1f} cubes/s, per-block cubes "
+              f"{stats.per_block_cubes}")
+    else:
+        store, stats = run_sweep(
+            scan.images, scan.Ps, bbox_min, bbox_max, cfg, predictor,
+            pair_selector, ledger_path, metrics, device=dev,
+        )
+    timings = {"refine_s": stats.refine_s, "plan_s": stats.plan_s,
+               "sweep_s": stats.sweep_s}
+    if sharded and _rank() != 0:
+        # rank 0 merged every block and owns the export
+        print(f"rank {_rank()}: swept {stats.n_batches} batch(es); the "
+              "export is on rank 0")
+        return None, stats, timings
     if min_component is None:
         min_component = cfg.fusion.min_component
     t0 = time.perf_counter()
     n = store.export_ply(out, min_component=min_component,
                          keep_top_components=keep_top_components)
-    timings = {
-        "refine_s": stats.refine_s, "plan_s": stats.plan_s,
-        "sweep_s": stats.sweep_s, "merge_export_s": time.perf_counter() - t0,
-    }
+    timings["merge_export_s"] = time.perf_counter() - t0
     print(
         f"wrote {n} points to {out}; {stats.n_cubes_nonempty}/"
         f"{stats.n_cubes_after_prefilter} cubes non-empty"
@@ -359,12 +394,12 @@ def cmd_reconstruct(args):
     from surfacenet_tpu_torch.device import resolve_device
 
     dev = resolve_device(args.device)
-    cfg = _single_device_config(args, _load_config(args), dev)
+    cfg, sharded = _sweep_layout(args, _load_config(args), dev)
     scan = _load_scan(args)
     predictor = _load_predictor(args.checkpoint, cfg, dev)
     selector = make_pair_selector(args.pairnet, cfg, scan.images, dev)
     metrics = None
-    if args.metrics_out:
+    if args.metrics_out and _rank() == 0:
         from surfacenet_tpu_torch.utils.observability import Metrics
 
         metrics = Metrics(args.metrics_out)
@@ -372,7 +407,7 @@ def cmd_reconstruct(args):
         scan, cfg, predictor, args.out, dev, selector,
         ledger_path=args.ledger, metrics=metrics,
         min_component=args.min_component,
-        keep_top_components=args.keep_top_components,
+        keep_top_components=args.keep_top_components, sharded=sharded,
     )
 
 
@@ -408,7 +443,10 @@ def cmd_reconstruct_all(args):
     ``--scans`` is swept with the shared config, predictor and pair net;
     per-scan ledgers (``<name>.ledger.jsonl``, so the split restarts where
     it stopped), ``.ply`` files and ``report.json`` land in ``--out-dir``.
-    Returns (report, {scan name: (SweepStats, stage seconds)}).
+    Sharded (``--sharded`` or ``mesh.block_axis > 1``), each scan's block
+    ledgers go to ``<name>.ledgers/`` and rank 0 alone writes the ``.ply``
+    files, the metrics and the report (the other ranks return an empty
+    report).  Returns (report, {scan name: (SweepStats, stage seconds)}).
     """
     import glob
     import os
@@ -421,7 +459,8 @@ def cmd_reconstruct_all(args):
     from surfacenet_tpu_torch.utils.ply import read_ply
 
     dev = resolve_device(args.device)
-    cfg = _load_config(args)
+    cfg, sharded = _sweep_layout(args, _load_config(args), dev)
+    root = _rank() == 0
     scan_dirs = args.scans or (
         sorted(glob.glob(os.path.join(args.root, "scan*"))) if args.root
         else [])
@@ -437,7 +476,6 @@ def cmd_reconstruct_all(args):
 
         pairnet = restore_pairnet(args.pairnet, cfg.pairnet)
         print(f"using learned pair selection with {args.pairnet}")
-    cfg = _single_device_config(args, cfg, dev)
     min_comp = (args.min_component if args.min_component is not None
                 else cfg.fusion.min_component)
 
@@ -450,13 +488,16 @@ def cmd_reconstruct_all(args):
         t0 = time.perf_counter()
         selector = make_pair_selector(pairnet, cfg, scan.images, dev)
         out_ply = os.path.join(args.out_dir, f"{name}.ply")
+        ledger = os.path.join(args.out_dir, f"{name}.ledgers" if sharded
+                              else f"{name}.ledger.jsonl")
         n, stats, timings = reconstruct_scan(
             scan, cfg, predictor, out_ply, dev, selector,
-            ledger_path=os.path.join(args.out_dir, f"{name}.ledger.jsonl"),
-            min_component=min_comp,
+            ledger_path=ledger, min_component=min_comp, sharded=sharded,
         )
         dt = time.perf_counter() - t0
         runs[name] = (stats, timings)
+        if not root:
+            continue
         report[name] = {"points": n, "cubes": stats.n_cubes_after_prefilter,
                         "seconds": round(dt, 2)}
         line = (f"{name}: {n} points, "
@@ -489,8 +530,9 @@ def cmd_reconstruct_all(args):
                 for k in ("acc_mean_mm", "comp_mean_mm", "overall_mm")
             }
             print(f"split mean (dtu protocol): {report['_mean_dtu']}")
-    with open(os.path.join(args.out_dir, "report.json"), "w") as f:
-        json.dump(report, f, indent=2)
+    if root:
+        with open(os.path.join(args.out_dir, "report.json"), "w") as f:
+            json.dump(report, f, indent=2)
     return report, runs
 
 
@@ -554,7 +596,13 @@ def cmd_export(args):
 
 def cmd_train(args):
     """Train SurfaceNet (``train/train_surface.py``); returns (TrainState,
-    TrainLog), or None when ``--resume`` finds the run already done."""
+    TrainLog), or None when ``--resume`` finds the run already done.
+
+    ``--sharded`` trains data parallel over the process group's ranks
+    (one rank without a group), unless ``train.batch_size`` is not a
+    multiple of them: then the command exits, or with
+    ``--allow-unsharded`` each rank trains alone.  Rank 0 writes the
+    checkpoints."""
     import os
 
     from surfacenet_tpu_torch.device import resolve_device
@@ -562,13 +610,25 @@ def cmd_train(args):
         restore_checkpoint, train_surfacenet,
     )
 
-    if args.sharded or args.allow_unsharded:
-        raise NotImplementedError(
-            "train --sharded / --allow-unsharded: data-parallel training "
-            "over a mesh is not ported (ROADMAP A5, A6); the port trains on "
-            "one card")
     dev = resolve_device(args.device)
     cfg = _load_config(args)
+    mesh = None
+    if args.sharded:
+        from surfacenet_tpu_torch.parallel.distributed import (
+            init_distributed, process_info,
+        )
+        from surfacenet_tpu_torch.parallel.mesh import make_mesh
+
+        init_distributed(device=dev)
+        n_dev = process_info()[1]
+        if cfg.train.batch_size % n_dev:
+            _degrade_or_die(
+                args,
+                f"train --sharded needs batch_size={cfg.train.batch_size} "
+                f"to be a multiple of the {n_dev} device(s)",
+            )
+        else:
+            mesh = make_mesh()
     if args.scan:
         if not args.gt:
             raise SystemExit("--scan training needs --gt pointing at the "
@@ -600,8 +660,9 @@ def cmd_train(args):
             print(f"--resume: no step_* checkpoints in {ck}; starting fresh")
     state, log = train_surfacenet(
         scene, cfg, n_steps=args.steps, state=state,
-        checkpoint_dir=args.checkpoint_dir, log_every=args.log_every,
-        start_step=start_step, device=dev,
+        checkpoint_dir=args.checkpoint_dir if _rank() == 0 else None,
+        log_every=args.log_every, mesh=mesh, start_step=start_step,
+        device=dev,
     )
     print(f"trained steps {start_step}..{args.steps}; loss "
           f"{log.losses[0]:.4f} -> {log.losses[-1]:.4f}")
@@ -656,9 +717,9 @@ def main(argv=None):
                     help="--scan is a COLMAP text model (cameras.txt, "
                          "images.txt, [points3D.txt]; images in ../images)")
     pr.add_argument("--sharded", action="store_true",
-                    help="mesh-sharded sweep (auto when mesh.block_axis>1); "
-                         "not ported: exits on one device unless "
-                         "--allow-unsharded, raises on several (ROADMAP A5)")
+                    help="sharded sweep over the process group's ranks "
+                         "(auto when mesh.block_axis>1); --ledger is then "
+                         "a directory of block ledgers")
     pr.add_argument("--allow-unsharded", action="store_true",
                     help="accept an unsharded fallback instead of "
                          "erroring when the requested mesh/batch "
@@ -696,8 +757,8 @@ def main(argv=None):
                          "-> cube-local learned pair selection (default: "
                          "the geometric selector)")
     pa.add_argument("--sharded", action="store_true",
-                    help="mesh-sharded sweeps (auto when mesh.block_axis>1); "
-                         "not ported, as reconstruct --sharded")
+                    help="sharded sweeps over the process group's ranks "
+                         "(auto when mesh.block_axis>1)")
     pa.add_argument("--allow-unsharded", action="store_true",
                     help="accept an unsharded fallback instead of "
                          "erroring when the requested mesh/batch "
@@ -740,9 +801,11 @@ def main(argv=None):
                     default="sphere",
                     help="golden scene to train on when no --scan is given")
     pt.add_argument("--sharded", action="store_true",
-                    help="not ported: raises (ROADMAP A5)")
+                    help="data-parallel over the process group's ranks "
+                         "(train.batch_size a multiple of them)")
     pt.add_argument("--allow-unsharded", action="store_true",
-                    help="not ported: raises (ROADMAP A6)")
+                    help="accept unsharded training instead of erroring "
+                         "when the batch does not divide over the ranks")
     pt.add_argument("--downsample", type=int, default=1)
     pt.add_argument("--steps", type=int, default=1000)
     pt.add_argument("--checkpoint-dir", default="checkpoints")

@@ -19,6 +19,10 @@ With ``ModelConfig.fused_inference`` the predictor runs
 ``fused_infer_apply`` instead, the reference's inference forward with
 BatchNorm folded into each conv (``fold_bn``) and every 3^3 conv + bias +
 ReLU through the implicit-GEMM conv kernel (``ops/cuda/conv3d.py``).
+
+Data-parallel training passes its process group as ``bn_group``: the
+training-mode BatchNorm then normalises by the statistics of the global
+batch, as flax's do under a sharded ``jit`` (``SyncBatchNormFn``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from surfacenet_tpu_torch.config import ModelConfig
+from surfacenet_tpu_torch.parallel.distributed import all_reduce_
 from surfacenet_tpu_torch.ops.conv3d import pack_conv_weight
 from surfacenet_tpu_torch.ops.cuda.conv3d import CHANNEL_MULTIPLE, conv3d
 
@@ -54,7 +59,60 @@ def _conv(conv, x, dt):
                     conv.dilation, conv.groups)
 
 
-def _batchnorm(bn, x):
+_BN_DIMS = (0, 2, 3, 4)  # every axis of (B, C, D, D, D) but the channel
+
+
+class SyncBatchNormFn(torch.autograd.Function):
+    """Training-mode BatchNorm over the batch of every rank of ``group``.
+
+    Forward: per-channel sums and sums of squares of this rank's float32
+    input and its voxel count, all-reduced in one float64 tensor; mean =
+    S1 / n and the biased variance S2 / n - mean^2 (flax's ``mean(x^2) -
+    mean(x)^2``, clamped at 0); output ``xhat * weight + bias`` in the
+    input's dtype.  Backward: ``sum(dy)`` and ``sum(dy * xhat)``
+    all-reduced, dx = weight invstd (dy - sum(dy) / n - xhat sum(dy xhat)
+    / n); the weight and bias gradients are this rank's sums, for the
+    trainer's gradient all-reduce to add up.  Returns (y, mean, var),
+    the statistics float32 and without gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        C = x.shape[1]
+        xf = x.float()
+        n_local = torch.tensor([xf.numel() // C], dtype=torch.float64,
+                               device=x.device)
+        sums = torch.cat([xf.sum(_BN_DIMS).double(),
+                          (xf * xf).sum(_BN_DIMS).double(), n_local])
+        all_reduce_(sums, group)
+        n = sums[2 * C:]
+        mean = sums[:C] / n
+        var = torch.clamp(sums[C:2 * C] / n - mean * mean, min=0.0)
+        mean, var = mean.float(), var.float()
+        invstd = torch.rsqrt(var + eps)
+        view = (1, C, 1, 1, 1)
+        y = ((xf - mean.view(view)) * (invstd * weight).view(view)
+             + bias.view(view))
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n, ctx.group = float(n), group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        C = x.shape[1]
+        view = (1, C, 1, 1, 1)
+        xhat = (x.float() - mean.view(view)) * invstd.view(view)
+        dyf = dy.float()
+        local = torch.cat([dyf.sum(_BN_DIMS), (dyf * xhat).sum(_BN_DIMS)])
+        tot = all_reduce_(local.clone(), ctx.group) / ctx.n
+        dx = (weight * invstd).view(view) * (
+            dyf - tot[:C].view(view) - xhat * tot[C:].view(view))
+        return dx.to(x.dtype), local[C:], local[:C], None, None
+
+
+def _batchnorm(bn, x, group=None):
     """BatchNorm as flax's ``nn.BatchNorm`` computes it.
 
     In eval mode: the running statistics (``bn`` itself).  In training
@@ -64,14 +122,21 @@ def _batchnorm(bn, x):
     ``m = bn.momentum`` (0.01, flax's momentum 0.99) and the *biased*
     batch variance (``nn.BatchNorm3d``'s own update takes the unbiased
     one).  The batch statistics are the ones the normalisation computed,
-    in float32: its mean and ``1 / sqrt(var + eps)``.
+    in float32: its mean and ``1 / sqrt(var + eps)``.  With a process
+    ``group`` the batch is every rank's (``SyncBatchNormFn``), and every
+    rank's running statistics take the same global values.
     """
     if isinstance(bn, nn.Identity) or not bn.training:
         return bn(x)
-    y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None,
-                                              None, True, 0.0, bn.eps)
+    if group is not None:
+        y, mean, var = SyncBatchNormFn.apply(x, bn.weight, bn.bias, bn.eps,
+                                             group)
+    else:
+        y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias,
+                                                  None, None, True, 0.0,
+                                                  bn.eps)
+        var = invstd.detach().pow(-2) - bn.eps
     with torch.no_grad():
-        var = invstd.pow(-2) - bn.eps
         for run, batch in ((bn.running_mean, mean), (bn.running_var, var)):
             run.mul_(1.0 - bn.momentum).add_(batch, alpha=bn.momentum)
     return y
@@ -97,9 +162,10 @@ class ConvBlock(nn.Module):
             ))
             self.bns.append(_bn_layer(features, use_bn))
 
-    def forward(self, x, dt):
+    def forward(self, x, dt, bn_group=None):
         for conv, bn in zip(self.convs, self.bns):
-            x = F.relu(_batchnorm(bn, _conv(conv, x, dt)), inplace=True)
+            x = F.relu(_batchnorm(bn, _conv(conv, x, dt), bn_group),
+                       inplace=True)
         return x
 
 
@@ -126,8 +192,9 @@ class SideLayer(nn.Module):
         elif upsample_mode not in ("resize", "deconv"):
             raise ValueError(f"unknown upsample_mode {upsample_mode!r}")
 
-    def forward(self, x, dt):
-        x = F.relu(_batchnorm(self.bn, _conv(self.conv, x, dt)), inplace=True)
+    def forward(self, x, dt, bn_group=None):
+        x = F.relu(_batchnorm(self.bn, _conv(self.conv, x, dt), bn_group),
+                   inplace=True)
         if self.upsample > 1:
             if self.deconv is not None:
                 x = _conv(self.deconv, x, dt)
@@ -144,7 +211,8 @@ class SurfaceNet(nn.Module):
     they are used, so float32 master weights train as the reference's
     (``param_dtype=float32``), and ``make_predictor``'s copy, cast to
     ``cfg.dtype`` once, runs without casts.  ``train()`` mode normalises
-    by batch statistics and updates the running ones (``_batchnorm``).
+    by batch statistics and updates the running ones (``_batchnorm``;
+    over every rank of ``bn_group`` when the forward is given one).
     The output is always float32.
     """
 
@@ -178,7 +246,8 @@ class SurfaceNet(nn.Module):
                 scale *= 2
         return scales
 
-    def forward(self, x: torch.Tensor, return_logits: bool = False):
+    def forward(self, x: torch.Tensor, return_logits: bool = False,
+                bn_group=None):
         dt = DTYPES[self.cfg.dtype]
         # NDHWC memory viewed as NCDHW is exactly channels_last_3d
         h = x.to(dt).permute(0, 4, 1, 2, 3)
@@ -186,8 +255,8 @@ class SurfaceNet(nn.Module):
         for block, side, do_pool in zip(
             self.blocks, self.sides, self.cfg.pool_after_block
         ):
-            h = block(h, dt)
-            sides.append(side(h, dt))
+            h = block(h, dt, bn_group)
+            sides.append(side(h, dt, bn_group))
             if do_pool:
                 h = F.max_pool3d(h, 2, 2)
         logits = _conv(self.head, torch.cat(sides, dim=1), dt)[:, 0].float()

@@ -1,7 +1,7 @@
 """Ray pooling: view-consistent thinning of the fused volume.
 
-Port of ``surfacenet_tpu/ops/ray_pooling.py``: the exact mode and the
-affine mode (the MXU ``affine_matmul`` form is not ported).
+Port of ``surfacenet_tpu/ops/ray_pooling.py``: the exact mode, the
+affine mode and its one-hot matmul form (``affine_matmul``).
 
 Exact mode (``ray_max_mask_exact``): every voxel centre is projected into
 the pooling view, voxels sharing a raster pixel (coarsened so that one ray
@@ -32,6 +32,7 @@ masks over the active views of each cube.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -210,6 +211,76 @@ def ray_vote_affine_plain(
                                      slopes[n_idx, k_idx], window)
     votes = torch.zeros(fused.shape, dtype=torch.int32, device=fused.device)
     return votes.index_add_(0, n_idx, mask.to(torch.int32))
+
+
+@contextlib.contextmanager
+def _ieee_float32_matmul():
+    """float32 products in full float32 on the card (no TF32) inside the
+    block, whatever the process-wide flag says; restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def ray_max_mask_affine_matmul(
+    probs: torch.Tensor, origins: torch.Tensor, s: float, Ps: torch.Tensor,
+    window: int = 0,
+) -> torch.Tensor:
+    """The affine ray-max mask of each item for its one view, with the
+    shear as one-hot shift products (the reference's MXU form).
+
+    The shift ``sh[t, i, j] = vol[t, i - oi_t, j - oj_t]`` of slab t is
+    ``Arow_t @ vol_t @ Acol_t^T`` with one-hot ``Arow_t[i, r] = [r == i -
+    oi_t]`` (and ``Acol_t`` alike); the unshear is the adjoint product with
+    the same matrices.  Sheared positions outside the cube are NEG before
+    the max; unsheared positions with no source get a ray maximum of 0,
+    which keeps their voxel as a maximum, as NEG does in the other forms
+    (probabilities are >= 0).  The products run as batched
+    ``torch.matmul`` in float32 with TF32 off: the one-hot matrices are
+    exact 0/1, so a product is then a lossless selection and the masks
+    equal the reference's (at Precision.HIGHEST) bit for bit.  A plain
+    product the reference computes outside any Pallas kernel, so a
+    library call is the port; each item is transformed only along its own
+    dominant axis.
+
+    probs (N, D, D, D); origins (N, 3); Ps (N, 3, 4) -> (N, D, D, D) bool.
+    """
+    N, D = probs.shape[0], probs.shape[1]
+    axis, slopes = item_params(origins, s, Ps, D)
+    off = _shear_offsets(slopes, D)  # (N, D, 2): oi_t, oj_t
+    ii = torch.arange(D, device=probs.device)
+    mask = torch.zeros(probs.shape, dtype=torch.bool, device=probs.device)
+    for a, perm in enumerate(PERMS):
+        idx = torch.nonzero(axis == a)[:, 0]
+        if idx.shape[0] == 0:
+            continue
+        order = (perm[2], perm[0], perm[1])  # slab axis first
+        vols = probs[idx].float().permute(0, *(1 + q for q in order))
+        src_i = ii[None, None, :] - off[idx, :, None, 0]  # (M, t, i)
+        src_j = ii[None, None, :] - off[idx, :, None, 1]
+        a_row = (src_i[..., None] == ii).float()  # (M, t, i, r)
+        a_col = (src_j[..., None] == ii).float()  # (M, t, j, c)
+        valid = (((src_i >= 0) & (src_i < D))[..., :, None]
+                 & ((src_j >= 0) & (src_j < D))[..., None, :])
+        with _ieee_float32_matmul():
+            sh = torch.matmul(torch.matmul(a_row, vols),
+                              a_col.transpose(-1, -2))
+            sh = torch.where(valid, sh, NEG)
+            if window > 0:
+                M = F.max_pool1d(
+                    sh.permute(0, 2, 3, 1).reshape(-1, 1, D),
+                    2 * window + 1, stride=1, padding=window,
+                ).reshape(sh.shape[0], D, D, D).permute(0, 3, 1, 2)
+            else:
+                M = sh.amax(dim=1, keepdim=True).expand_as(sh)
+            rm = torch.matmul(a_row.transpose(-1, -2),
+                              torch.matmul(M, a_col))
+        is_max = vols >= rm - 1e-6
+        mask[idx] = is_max.permute(0, *(1 + np.argsort(order)).tolist())
+    return mask
 
 
 def ray_max_mask_exact(

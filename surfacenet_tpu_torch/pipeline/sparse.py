@@ -35,6 +35,29 @@ from surfacenet_tpu_torch.utils.ply import write_ply
 MERGE_BACKENDS = ("native", "numpy")
 
 
+def ledger_records(path: str):
+    """The ledger's records in order, read only; a torn line (a process
+    killed mid-append) is skipped."""
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                yield json.loads(line)
+            except json.JSONDecodeError:
+                continue
+
+
+def ledger_done_set(path: Optional[str]) -> set:
+    """Grid indices of every cube a ledger holds (empty ones included),
+    read without opening a store on it; empty without a ledger."""
+    if not path or not os.path.exists(path):
+        return set()
+    return {tuple(int(v) for v in rec["grid_idx"])
+            for rec in ledger_records(path)}
+
+
 @dataclasses.dataclass
 class CubeResult:
     """Result for one cube, keyed by its integer grid index."""
@@ -124,30 +147,22 @@ class SparseCubeStore:
                 f.seek(end - 1)
                 if f.read(1) != b"\n":
                     f.write(b"\n")
-        with open(self.ledger_path) as f:
-            for line in f:
-                line = line.strip()
-                if not line:
-                    continue
-                try:
-                    rec = json.loads(line)
-                except json.JSONDecodeError:
-                    continue  # torn write of a killed process
-                g = tuple(int(v) for v in rec["grid_idx"])
-                self._done.add(g)
-                if rec.get("empty", True):
-                    continue
-                idx = np.asarray(rec["occ_idx"], int).reshape(-1, 3)
-                at = (idx[:, 0], idx[:, 1], idx[:, 2])
-                occ = np.zeros((self.D,) * 3, bool)
-                occ[at] = True
-                prob = np.zeros((self.D,) * 3, np.float32)
-                prob[at] = np.asarray(rec["prob"], np.float32)
-                color = None
-                if "color" in rec:
-                    color = np.zeros((self.D,) * 3 + (3,), np.float32)
-                    color[at] = np.asarray(rec["color"], np.float32)
-                self._cubes[g] = CubeResult(g, occ, prob, color)
+        for rec in ledger_records(self.ledger_path):
+            g = tuple(int(v) for v in rec["grid_idx"])
+            self._done.add(g)
+            if rec.get("empty", True):
+                continue
+            idx = np.asarray(rec["occ_idx"], int).reshape(-1, 3)
+            at = (idx[:, 0], idx[:, 1], idx[:, 2])
+            occ = np.zeros((self.D,) * 3, bool)
+            occ[at] = True
+            prob = np.zeros((self.D,) * 3, np.float32)
+            prob[at] = np.asarray(rec["prob"], np.float32)
+            color = None
+            if "color" in rec:
+                color = np.zeros((self.D,) * 3 + (3,), np.float32)
+                color[at] = np.asarray(rec["color"], np.float32)
+            self._cubes[g] = CubeResult(g, occ, prob, color)
 
     def _records(self):
         """(coords (N, 3) int64, probs (N,) f32, colors (N, 3) f32) of the

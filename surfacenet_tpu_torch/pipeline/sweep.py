@@ -11,8 +11,9 @@ that the production presets take:
      per (cube, distinct view) (CUDA kernel; float32, bfloat16 or int8
      images), colour centring and pair assembly, the SurfaceNet forward,
      mean or consensus fusion, the ray-pooling vote (the affine vote
-     kernel, or the exact scatter-max raster), tau/gamma thresholds, core
-     claiming, best-pair colour and compact top-k records.
+     kernel, its one-hot matmul form, or the exact scatter-max raster),
+     tau/gamma thresholds, core claiming, best-pair colour and compact
+     top-k records.
   3. Host harvest, pipelined three batches deep: unpack records, re-fetch
      truncated cubes dense, add to the ``SparseCubeStore`` (and its resume
      ledger), count into ``Metrics``.
@@ -21,10 +22,9 @@ that the production presets take:
 are not swept again, and the remaining cubes claim exactly what they
 would have claimed in an uninterrupted run.  ``fusion.min_component`` is
 not applied here: the export applies it (``SparseCubeStore.merge``).
-
-Not ported yet (ROADMAP.md): the non-deduplicated gather, the matmul
-ray-pool mode and the sharded sweep (``mesh.block_axis > 1`` raises; the
-CLI's ``--allow-unsharded`` strips it first).
+``run_sweep`` sweeps on one device whatever ``cfg.mesh`` says, as the
+reference's does; the sharded sweep is
+``parallel/sweep_sharded.py::run_sweep_sharded``.
 """
 
 from __future__ import annotations
@@ -48,7 +48,9 @@ from surfacenet_tpu_torch.ops.cvc import center_cvc, quantize_int8
 from surfacenet_tpu_torch.ops.fusion import (
     adaptive_threshold, fuse_pairs, fuse_pairs_consensus,
 )
-from surfacenet_tpu_torch.ops.ray_pooling import ray_pool
+from surfacenet_tpu_torch.ops.ray_pooling import (
+    ray_max_mask_affine_matmul, ray_pool,
+)
 from surfacenet_tpu_torch.ops.view_pairs import (
     dedup_view_slots, select_pairs_geometric,
 )
@@ -175,6 +177,19 @@ def resolve_compact_k(compact_k: int, D: int) -> int:
     return min(k, D * D * D)
 
 
+def unique_views(pair_idx: torch.Tensor, K: int) -> torch.Tensor:
+    """Per cube, the K smallest distinct views of its pairs (Nc, Np, 2),
+    ascending, -1 padded: the reference's ``jnp.unique(pv, size=K,
+    fill_value=-1)`` row by row."""
+    pv = pair_idx.reshape(pair_idx.shape[0], -1).long().sort(dim=1).values
+    first = torch.ones_like(pv, dtype=torch.bool)
+    first[:, 1:] = pv[:, 1:] != pv[:, :-1]
+    big = torch.iinfo(torch.int64).max
+    uniq = torch.where(first, pv, big).sort(dim=1).values[:, :K]
+    uniq = torch.where(uniq == big, -1, uniq)
+    return F.pad(uniq, (0, K - uniq.shape[1]), value=-1)
+
+
 def pool_views_for(uniq_views: torch.Tensor, n_pool_views: int, n_pairs: int):
     """First K = min(n_pool_views, 2 * n_pairs) slots of the -1-padded
     ascending unique-view table: (pool_views (Nc, K) >= 0, view_mask)."""
@@ -192,8 +207,8 @@ def cube_batch_step(
     origins: torch.Tensor,  # (Nc, 3) float32
     pair_w: torch.Tensor,  # (Nc, Npairs) float32
     core_bounds: Optional[torch.Tensor],  # (Nc, 3, 2) int32 claim region
-    uniq_views: torch.Tensor,  # (Nc, Ku) int32, -1 padded
-    slot_idx: torch.Tensor,  # (Nc, Npairs, 2) int32 into Ku
+    uniq_views: Optional[torch.Tensor],  # (Nc, Ku) int32, -1 padded
+    slot_idx: Optional[torch.Tensor],  # (Nc, Npairs, 2) int32 into Ku
     *,
     D: int,
     s: float,
@@ -211,17 +226,24 @@ def cube_batch_step(
     pool_window: int = 0,
     ray_pool_mode: str = "exact",
     fusion_mode="mean",
+    pair_idx: Optional[torch.Tensor] = None,  # (Nc, Npairs, 2) int32
 ):
     """One device step over a fixed-size batch of cubes.
 
-    The reference's ``pair_idx`` argument is absent: the deduplicated
-    gather reads the pairs through ``uniq_views``/``slot_idx``.  The gather
-    runs once per (cube, distinct view); raw colours feed both
+    With ``uniq_views``/``slot_idx`` (the sweeps' deduplicated gather) the
+    gather runs once per (cube, distinct view) and the pairs are read
+    through the slots; with ``uniq_views=None`` it runs once per (cube,
+    pair, half) on ``pair_idx`` (the reference's other branch; the
+    reference takes ``pair_idx`` positionally, the port as a keyword, and
+    the deduplicated branch needs none).  Raw colours feed both
     the colour output and, centred, the model input.  Pooling views are the
-    cube's first K distinct views; padded slots do not vote and do not count
-    in the gamma denominator.  ``ray_pool_mode`` "affine" or
-    "affine_pallas" votes with the affine vote kernel, "exact" with the
-    exact scatter-max raster (``ops/ray_pooling.py::ray_pool``).
+    cube's first K = min(n_pool_views, 2 n_pairs) distinct views; padded
+    slots do not vote and do not count in the gamma denominator.
+    ``ray_pool_mode`` "affine" or "affine_pallas" votes with the affine
+    vote kernel, "affine_matmul" sums the masks of the one-hot matmul form
+    (``ops/ray_pooling.py::ray_max_mask_affine_matmul``) over the active
+    views, "exact" runs the exact scatter-max raster
+    (``ops/ray_pooling.py::ray_pool``).
     ``fusion_mode`` is "mean" (``fuse_pairs``) or ("consensus", beta,
     deadband) (``fuse_pairs_consensus``; "consensus" alone takes its
     defaults).  Returns
@@ -234,24 +256,43 @@ def cube_batch_step(
     x_dt = (torch.bfloat16
             if getattr(predict, "in_dtype", "float32") == "bfloat16"
             else torch.float32)
-    Ku = uniq_views.shape[1]
-    rows = torch.arange(Nc, device=origins.device)[:, None]
+    def centred(colors, valids):
+        if center_colors:
+            return center_cvc(colors, valids).to(x_dt)
+        return torch.where(valids[..., None], colors, 0.0).to(x_dt)
 
-    # padded slots (-1) gather the cube's first view: harmless duplicates
-    uv = torch.where(uniq_views >= 0, uniq_views,
-                     uniq_views[:, :1].clamp(min=0))
-    colors_u, valids_u = warp_gather(
-        images, Ps, uv.reshape(-1).contiguous(),
-        origins.repeat_interleave(Ku, dim=0), D=D, s=s,
-    )
-    if center_colors:
-        xs_u = center_cvc(colors_u, valids_u).to(x_dt)
+    if uniq_views is not None:
+        Ku = uniq_views.shape[1]
+        # padded slots (-1) gather the cube's first view: harmless
+        # duplicates; views are read as [cube, slot]
+        uv = torch.where(uniq_views >= 0, uniq_views,
+                         uniq_views[:, :1].clamp(min=0))
+        colors_v, valids_v = warp_gather(
+            images, Ps, uv.reshape(-1).contiguous(),
+            origins.repeat_interleave(Ku, dim=0), D=D, s=s,
+        )
+        xs_v = centred(colors_v, valids_v)
+        sa, sb = slot_idx[..., 0].long(), slot_idx[..., 1].long()
     else:
-        xs_u = torch.where(valids_u[..., None], colors_u, 0.0).to(x_dt)
-    colors_u = colors_u.reshape(Nc, Ku, D, D, D, 3)
-    valids_u = valids_u.reshape(Nc, Ku, D, D, D)
-    xs_u = xs_u.reshape(Nc, Ku, D, D, D, 3)
-    sa, sb = slot_idx[..., 0].long(), slot_idx[..., 1].long()  # (Nc, Np)
+        if pair_idx is None:
+            raise ValueError("cube_batch_step needs uniq_views/slot_idx or "
+                             "pair_idx")
+        # one item per (cube, pair, half), the halves centred apart;
+        # views are read as [cube, pair] (a) and [cube, Np + pair] (b)
+        Ku = 2 * n_pairs
+        halves = pair_idx.reshape(Nc, n_pairs, 2).permute(0, 2, 1)
+        colors_v, valids_v = warp_gather(
+            images, Ps, halves.reshape(-1).contiguous().int(),
+            origins.repeat_interleave(Ku, dim=0), D=D, s=s,
+        )
+        xs_v = centred(colors_v, valids_v)
+        sa = torch.arange(n_pairs, device=origins.device).expand(Nc, -1)
+        sb = sa + n_pairs
+    rows = torch.arange(Nc, device=origins.device)[:, None]
+    colors_u = colors_v.reshape(Nc, Ku, D, D, D, 3)
+    valids_u = valids_v.reshape(Nc, Ku, D, D, D)
+    xs_u = xs_v.reshape(Nc, Ku, D, D, D, 3)
+    del colors_v, valids_v, xs_v
 
     x = torch.cat([xs_u[rows, sa], xs_u[rows, sb]], dim=-1)
     x = x.reshape(NB, D, D, D, 6)
@@ -279,11 +320,27 @@ def cube_batch_step(
         taus = torch.full((Nc,), tau, dtype=torch.float32,
                           device=fused.device)
 
-    pool_views, view_mask = pool_views_for(uniq_views, n_pool_views, n_pairs)
+    K = min(n_pool_views, n_pairs * 2)
+    pool_views, view_mask = pool_views_for(
+        uniq_views if uniq_views is not None else unique_views(pair_idx, K),
+        n_pool_views, n_pairs)
     if ray_pool_mode == "exact":
         occ, _ = ray_pool(fused, origins, s, Ps[pool_views.long()], taus,
                           gamma, view_mask=view_mask,
                           window=pool_window)
+    elif ray_pool_mode == "affine_matmul":
+        masks = ray_max_mask_affine_matmul(
+            fused.repeat_interleave(K, dim=0),
+            origins.repeat_interleave(K, dim=0), s,
+            Ps[pool_views.reshape(-1).long()], window=pool_window,
+        ).reshape(Nc, K, D, D, D)
+        votes = (masks & view_mask[:, :, None, None, None]).sum(
+            dim=1, dtype=torch.int32)
+        n_uniq = view_mask.sum(dim=1)
+        need = torch.clamp(
+            torch.ceil(gamma * n_uniq.float()).to(torch.int32), min=1
+        )[:, None, None, None]
+        occ = (votes >= need) & (fused > taus[:, None, None, None])
     else:
         votes = ray_vote_affine(
             fused, origins, s, Ps[pool_views.long()], view_mask,
@@ -421,31 +478,54 @@ class SweepPlan:
         )
 
 
+def prefiltered_cubes(Ps, bbox_min, bbox_max, image_hw, cfg: Config,
+                      device):
+    """The bbox's cubes that survive the prefilter: (grid (n, 3), origins
+    (n, 3) mm, cubes enumerated before the prefilter, lattice_max (3,))."""
+    grid, origins = enumerate_cubes(bbox_min, bbox_max, cfg)
+    lattice_max = grid.max(axis=0) if len(grid) else np.zeros(3, int)
+    keep = prefilter_cubes(Ps, origins, image_hw, cfg, device)
+    return grid[keep], origins[keep], len(origins), lattice_max
+
+
+def not_done(grid, done: Optional[set]) -> np.ndarray:
+    """(n,) bool: the rows of ``grid`` whose index is not in ``done``."""
+    return np.array([tuple(int(v) for v in g) not in (done or ())
+                     for g in grid], bool)
+
+
 def plan_sweep(Ps, bbox_min, bbox_max, image_hw, cfg: Config,
                device, pair_selector: Optional[Callable] = None,
                done: Optional[set] = None) -> SweepPlan:
-    """Enumerate, prefilter, drop ``done`` cubes, select pairs, dedup
-    views, claim cores, pad.
+    """Enumerate, prefilter, drop ``done`` cubes, then ``plan_cubes``.
+
+    ``done`` holds the grid indices of cubes already swept (a resumed
+    ledger): they are dropped after the prefilter, but the core claims
+    still see them as present, so their neighbours claim what they would
+    have claimed in an uninterrupted run (a done cube's claims are in the
+    ledger already).
+    """
+    grid, origins, n_total, lattice_max = prefiltered_cubes(
+        Ps, bbox_min, bbox_max, image_hw, cfg, device)
+    todo = not_done(grid, done)
+    return plan_cubes(grid[todo], origins[todo], grid, lattice_max, n_total,
+                      Ps, image_hw, cfg, device, pair_selector,
+                      pad_to=cfg.sweep.cube_batch)
+
+
+def plan_cubes(grid, origins, present, lattice_max, n_total: int, Ps,
+               image_hw, cfg: Config, device,
+               pair_selector: Optional[Callable] = None,
+               pad_to: int = 1) -> SweepPlan:
+    """Select pairs, dedup views, claim cores and pad to a multiple of
+    ``pad_to`` rows for the cubes ``grid``/``origins``, among the
+    prefilter's survivors ``present``.
 
     ``pair_selector`` (Ps, origins) -> (pair_idx (N, Nv, 2), pair_w (N, Nv))
-    picks each cube's pairs; by default the geometric selector.  ``done``
-    holds the grid indices of cubes already swept (a resumed ledger): they
-    are dropped after the prefilter, but the core claims still see them as
-    present, so their neighbours claim what they would have claimed in an
-    uninterrupted run (a done cube's claims are in the ledger already).
+    picks each cube's pairs; by default the geometric selector.
     """
     D = cfg.voxel.cube_size
-    grid, origins = enumerate_cubes(bbox_min, bbox_max, cfg)
-    n_total = len(origins)
-    lattice_max = grid.max(axis=0) if len(grid) else np.zeros(3, int)
-    keep = prefilter_cubes(Ps, origins, image_hw, cfg, device)
-    grid, origins = grid[keep], origins[keep]
-    present_grid = grid
-    n_prefilter = len(grid)
-    if done:
-        todo = np.array([tuple(int(v) for v in g) not in done for g in grid],
-                        bool)
-        grid, origins = grid[todo], origins[todo]
+    n_prefilter = len(present)
     pool_window = resolve_pool_window(cfg)
     n = len(origins)
     if n == 0:
@@ -465,11 +545,10 @@ def plan_sweep(Ps, bbox_min, bbox_max, image_hw, cfg: Config,
     uniq_views, slot_idx = dedup_view_slots(pair_idx)
     core_bounds = (
         core_bounds_for(grid, lattice_max, D, cfg.voxel.overlap,
-                        present=present_grid)
+                        present=present)
         if pool_window > 0 else None
     )
-    B = cfg.sweep.cube_batch
-    n_pad = (-n) % B
+    n_pad = (-n) % pad_to
 
     def pad(a):
         return np.concatenate([a, a[:1].repeat(n_pad, 0)]) if n_pad else a
@@ -533,17 +612,61 @@ def _check_supported(cfg: Config) -> None:
             f"fusion_mode={cfg.fusion.fusion_mode!r}: the port runs 'mean' "
             "and 'consensus'"
         )
-    if cfg.fusion.ray_pool_mode not in ("exact", "affine", "affine_pallas"):
+    if cfg.fusion.ray_pool_mode not in ("exact", "affine", "affine_pallas",
+                                        "affine_matmul"):
         raise NotImplementedError(
-            f"ray_pool_mode={cfg.fusion.ray_pool_mode!r} is not ported; the "
-            "port runs 'exact', and the affine vote for 'affine' and "
-            "'affine_pallas'"
+            f"ray_pool_mode={cfg.fusion.ray_pool_mode!r}: the port runs "
+            "'exact', the affine vote for 'affine' and 'affine_pallas', and "
+            "'affine_matmul'"
         )
-    if cfg.mesh.block_axis > 1:
-        raise NotImplementedError(
-            f"mesh.block_axis={cfg.mesh.block_axis}: the sharded sweep is "
-            "not ported (ROADMAP A5); on one card, run the CLI with "
-            "--allow-unsharded")
+
+
+def sweep_step(cfg: Config, images_g, Ps_d, predictor, pool_window: int):
+    """``cube_batch_step`` with the sweep's images, matrices and config
+    bound: called with ``SweepPlan.batch``'s tensors."""
+    return functools.partial(
+        cube_batch_step, images_g, Ps_d,
+        D=cfg.voxel.cube_size, s=cfg.voxel.voxel_size_mm,
+        n_pairs=cfg.fusion.n_view_pairs, tau=cfg.fusion.tau,
+        gamma=cfg.fusion.gamma, adaptive=cfg.fusion.adaptive_threshold,
+        center_colors=cfg.voxel.center_colors, predict=predictor,
+        n_pool_views=cfg.fusion.n_pool_views,
+        adaptive_taus=tuple(cfg.fusion.adaptive_taus),
+        adaptive_target_density=cfg.fusion.adaptive_target_density,
+        compact_k=cfg.sweep.compact_k, pool_window=pool_window,
+        ray_pool_mode=cfg.fusion.ray_pool_mode,
+        fusion_mode=resolve_fusion_mode(cfg),
+    )
+
+
+def harvest_batch(step, plan: "SweepPlan", rows: np.ndarray, nb: int, out,
+                  device, D: int):
+    """Host results of one compact batch dispatched on ``plan`` rows
+    ``rows``: (occ, fused, color) numpy of its first ``nb`` (real) rows,
+    the cubes whose records fell short of their occupied count re-run
+    dense in mini-batches; plus (cubes re-run, dense dispatches)."""
+    rec = out[0].cpu().numpy()
+    counts = out[1].cpu().numpy()[:nb]
+    occ, fused, color = unpack_compact(rec, counts, D)
+    # every occupied voxel must be among the records
+    got = (rec[:nb, :, 3] > 0).sum(axis=1)
+    short = np.flatnonzero(got < counts)
+    n_dense = 0
+    if len(short):
+        sel = rows[short]
+        PAD = min(len(rows), _REFETCH_PAD)
+        extra = (-len(sel)) % PAD
+        rr = np.concatenate([sel, sel[:1].repeat(extra)]) if extra else sel
+        outs = []
+        for c0 in range(0, len(rr), PAD):
+            dense = step(*plan.batch(rr[c0: c0 + PAD], device),
+                         compact_output=False)
+            outs.append([o.cpu().numpy() for o in dense])
+            n_dense += 1
+        occ[short], fused[short], color[short] = [
+            np.concatenate([o[i] for o in outs])[: len(sel)]
+            for i in range(3)]
+    return occ[:nb], fused[:nb], color[:nb], len(short), n_dense
 
 
 def _flush_metrics(metrics, stats: "SweepStats", wall: float, n: int):
@@ -634,50 +757,20 @@ def run_sweep(
     Ps_d = torch.as_tensor(np.asarray(Ps), dtype=torch.float32, device=dev)
     B = cfg.sweep.cube_batch
     n = plan.n
-    step = functools.partial(
-        cube_batch_step, images_g, Ps_d,
-        D=D, s=s, n_pairs=cfg.fusion.n_view_pairs, tau=cfg.fusion.tau,
-        gamma=cfg.fusion.gamma, adaptive=cfg.fusion.adaptive_threshold,
-        center_colors=cfg.voxel.center_colors, predict=predictor,
-        n_pool_views=cfg.fusion.n_pool_views,
-        adaptive_taus=tuple(cfg.fusion.adaptive_taus),
-        adaptive_target_density=cfg.fusion.adaptive_target_density,
-        compact_k=cfg.sweep.compact_k, pool_window=pool_window,
-        ray_pool_mode=cfg.fusion.ray_pool_mode,
-        fusion_mode=resolve_fusion_mode(cfg),
-    )
+    step = sweep_step(cfg, images_g, Ps_d, predictor, pool_window)
 
     def dispatch(b0):
         """Enqueue one batch; the device runs it while the host goes on."""
         return step(*plan.batch(slice(b0, b0 + B), dev), compact_output=True)
 
-    def dispatch_rows(rows: np.ndarray):
-        """Dense re-run of selected rows, in fixed mini-batches."""
-        PAD = min(B, _REFETCH_PAD)
-        extra = (-len(rows)) % PAD
-        rr = np.concatenate([rows, rows[:1].repeat(extra)]) if extra else rows
-        outs = []
-        for c0 in range(0, len(rr), PAD):
-            out = step(*plan.batch(rr[c0: c0 + PAD], dev),
-                       compact_output=False)
-            outs.append([o.cpu().numpy() for o in out])
-        return [np.concatenate([o[i] for o in outs])[: len(rows)]
-                for i in range(3)]
-
     def harvest(b0, out):
         nb = min(B, n - b0)  # padding rows (copies of row 0) excluded
-        rec = out[0].cpu().numpy()
-        counts = out[1].cpu().numpy()[:nb]
-        occ, fused, color = unpack_compact(rec, counts, D)
-        # every occupied voxel must be among the records; re-fetch the
-        # cubes whose records fell short of their true count dense
-        got = (rec[:nb, :, 3] > 0).sum(axis=1)
-        short = np.flatnonzero(got < counts)
-        if len(short):
-            stats.n_refetched += len(short)
+        occ, fused, color, n_short, _ = harvest_batch(
+            step, plan, np.arange(b0, b0 + B), nb, out, dev, D)
+        if n_short:
+            stats.n_refetched += n_short
             if metrics is not None:
-                metrics.count("compact_truncation_refetches", len(short))
-            occ[short], fused[short], color[short] = dispatch_rows(b0 + short)
+                metrics.count("compact_truncation_refetches", n_short)
         stats.n_batches += 1
         for i in range(nb):
             if occ[i].any():

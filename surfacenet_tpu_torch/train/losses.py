@@ -10,6 +10,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from surfacenet_tpu_torch.parallel.distributed import all_reduce_
+
 
 def class_balanced_bce(
     logits: torch.Tensor,
@@ -17,6 +19,7 @@ def class_balanced_bce(
     valid: Optional[torch.Tensor] = None,
     balanced: bool = True,
     eps: float = 1e-6,
+    group=None,
 ) -> torch.Tensor:
     """Class-balanced binary cross-entropy over voxels.
 
@@ -28,6 +31,11 @@ def class_balanced_bce(
       logits: (B, D, D, D) pre-sigmoid, float32.
       labels: (B, D, D, D) in {0, 1}.
       valid: optional bool mask; invalid voxels are excluded.
+      group: a process group whose ranks each hold a part of the batch
+        (data-parallel training): N, N_pos and the weights' sum are then
+        the global batch's, as in the reference's loss over its sharded
+        batch, and each rank returns its voxels' share of the global
+        loss (the ranks' returns add up to it).
 
     Returns a float32 scalar.
     """
@@ -39,10 +47,16 @@ def class_balanced_bce(
     per_vox = -(labels * F.logsigmoid(logits)
                 + (1.0 - labels) * F.logsigmoid(-logits))
     valid_f = torch.ones_like(labels) if valid is None else valid.float()
-    n = torch.clamp(valid_f.sum(), min=1.0)
+    counts = torch.stack([valid_f.sum(), (labels * valid_f).sum()])
+    if group is not None:
+        all_reduce_(counts, group)
+    n = torch.clamp(counts[0], min=1.0)
     if balanced:
-        n_pos = (labels * valid_f).sum()
+        n_pos = counts[1]
         w = torch.where(labels > 0.5, (n - n_pos) / n, n_pos / n) * valid_f
     else:
         w = valid_f
-    return (per_vox * w).sum() / torch.clamp(w.sum(), min=eps)
+    w_sum = w.sum()
+    if group is not None:
+        w_sum = all_reduce_(w_sum.reshape(1), group)[0]
+    return (per_vox * w).sum() / torch.clamp(w_sum, min=eps)

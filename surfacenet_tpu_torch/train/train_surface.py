@@ -1,7 +1,7 @@
-"""SurfaceNet training on one card.
+"""SurfaceNet training on one card, or data parallel over ranks.
 
-Port of ``surfacenet_tpu/train/train_surface.py`` (its single-device
-branch): cubes sampled around the ground-truth surface, voxelized
+Port of ``surfacenet_tpu/train/train_surface.py``: cubes sampled around
+the ground-truth surface, voxelized
 occupancy labels, the CVC-pair gather, class-balanced BCE, SGD with
 momentum and weight decay (the reference's ``add_decayed_weights`` then
 ``sgd`` make ``torch.optim.SGD``'s update) under an optional cosine
@@ -34,7 +34,17 @@ numpy and draws the reference's numbers for the same generator.  A
 resumed run (``start_step`` > 0) takes a new stream per start offset, as
 the reference folds the offset into its key, not a replay.
 
-Not ported (ROADMAP A5): data-parallel training over a mesh.
+Data parallel (``train_surfacenet(mesh=...)``, ``cli train --sharded``):
+every rank holds the same model and optimizer, draws the same global
+batch from the same generator (so the streams are the single process's),
+and gathers and runs only its rows; BatchNorm normalises by the global
+batch's statistics and the loss divides by the global batch's weight
+(``SyncBatchNormFn``, ``class_balanced_bce(group=)``), so the ranks'
+losses add up to the single process's, and their gradients are
+all-reduced as a sum (``DistributedDataParallel`` would average them).
+A pool of point-cloud cubes is built on rank 0 and broadcast: its host
+build is the slow part (minutes at ``pool_size`` 2048), and the ranks
+would build the same bytes.  Checkpoints come from rank 0.
 """
 
 from __future__ import annotations
@@ -46,6 +56,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from surfacenet_tpu_torch.config import Config, TrainConfig
 from surfacenet_tpu_torch.data.synthetic import SDFScene, SyntheticScene
@@ -56,6 +68,9 @@ from surfacenet_tpu_torch.models.convert import (
 from surfacenet_tpu_torch.models.surfacenet import SurfaceNet, init_surfacenet
 from surfacenet_tpu_torch.ops.cuda.warp_gather import build_cvc_batch_cuda
 from surfacenet_tpu_torch.ops.view_pairs import select_pairs_geometric
+from surfacenet_tpu_torch.parallel.distributed import (
+    all_reduce_, broadcast_object,
+)
 from surfacenet_tpu_torch.pipeline.sweep import gather_images
 from surfacenet_tpu_torch.train.losses import class_balanced_bce
 
@@ -69,12 +84,14 @@ class TrainState:
     """The model (float32 master weights on the device, ``train()``
     mode while a step runs), its optimizer and the count of updates made:
     the reference's flax ``TrainState`` with ``batch_stats`` in the
-    model's BatchNorm buffers."""
+    model's BatchNorm buffers.  ``group``: the data-parallel process group
+    (None: one process)."""
 
     model: SurfaceNet
     optimizer: torch.optim.SGD
     train_cfg: TrainConfig
     step: int = 0
+    group: object = None
 
 
 def learning_rate(tcfg: TrainConfig, step: int) -> float:
@@ -153,7 +170,17 @@ def train_step(
     With ``aug_sigma_px`` > 0 and a generator, the views' principal points
     move by N(0, sigma) pixels first; ``aug_anneal_steps`` > 0 decays
     sigma linearly to 0 at that step, counted by ``state.step`` (so a
-    resumed run anneals as the unbroken one would)."""
+    resumed run anneals as the unbroken one would).
+
+    With ``state.group`` every rank passes the same global batch and runs
+    its contiguous share of the rows; the gradients and the returned loss
+    are the group's sums (the loss is then synchronised)."""
+    group = state.group
+    if group is not None:
+        r, w = dist.get_rank(group), dist.get_world_size(group)
+        n = origins.shape[0] // w
+        origins, pair_idx, labels = (t[r * n:(r + 1) * n]
+                                     for t in (origins, pair_idx, labels))
     if aug_sigma_px > 0.0 and generator is not None:
         sigma = aug_sigma_px
         if aug_anneal_steps > 0:
@@ -163,16 +190,23 @@ def train_step(
         Ps = perturb_calibration(Ps, duv)
     x, valid = build_cvc_batch_cuda(images, Ps, pair_idx, origins, D=D, s=s,
                                     center_colors=center_colors)
-    logits = state.model.train()(x, return_logits=True)
-    loss = class_balanced_bce(logits, labels, valid, balanced)
+    logits = state.model.train()(x, return_logits=True, bn_group=group)
+    loss = class_balanced_bce(logits, labels, valid, balanced, group=group)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    if group is not None:
+        grads = [p.grad for p in state.model.parameters()]
+        flat = all_reduce_(_flatten_dense_tensors(grads), group)
+        for g, total in zip(grads, _unflatten_dense_tensors(flat, grads)):
+            g.copy_(total)
+        loss = all_reduce_(loss.reshape(1), group)[0]
     lr = learning_rate(state.train_cfg, state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
     state.optimizer.step()
     state.step += 1
-    return loss.detach()
+    return loss
 
 
 @torch.no_grad()
@@ -469,20 +503,45 @@ def train_surfacenet(
       start_step: resume offset: the loop runs steps start_step..n_steps,
         logs and checkpoints with their global numbers, and draws a new
         stream for the offset.
-      mesh: not ported (ROADMAP A5); anything but None raises.
+      mesh: a ``parallel/mesh.py::RankMesh``: data parallel over its
+        ranks, every one of which calls this with the same arguments
+        (``train.batch_size`` a multiple of the ranks, the scan path
+        ``train.scan_chunk > 0``, a device-samplable scene); the losses
+        logged are the global batch's, on every rank.
     """
+    tc = cfg.train
+    group = None
     if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported (ROADMAP "
-            "A5); train on one device")
+        if tc.scan_chunk <= 0:
+            raise ValueError(
+                "mesh training requires the scan path (train.scan_chunk > 0)")
+        if tc.batch_size % mesh.size != 0:
+            raise ValueError(f"batch_size={tc.batch_size} must be a multiple "
+                             f"of the {mesh.size}-device mesh")
+        group = mesh.group
+        if mesh.rank != 0:
+            checkpoint_dir = None  # one writer
     dev = resolve_device(device)
     scenes = list(scene) if isinstance(scene, (list, tuple)) else [scene]
-    tc = cfg.train
     rng = np.random.default_rng((tc.seed, start_step) if start_step
                                 else tc.seed)
     if state is None:
         state = create_train_state(cfg, device=dev)
+    state.group = group
     n_steps = n_steps if n_steps is not None else tc.n_steps
+
+    def shared(build):
+        """``build()``'s tensors: built on rank 0 and broadcast under a
+        group (every rank would build the same bytes)."""
+        if group is None:
+            return build()
+        got = None
+        if dist.get_rank(group) == 0:
+            got = [t.cpu().numpy() for t in build()]
+        got = broadcast_object(got, src=dist.get_global_rank(group, 0),
+                               group=group)
+        return tuple(torch.as_tensor(a, device=dev) for a in got)
+
     step_kw = dict(
         D=cfg.voxel.cube_size, s=cfg.voxel.voxel_size_mm,
         balanced=tc.class_balance, center_colors=cfg.voxel.center_colors,
@@ -491,27 +550,33 @@ def train_surfacenet(
     )
     log = TrainLog(steps=[], losses=[])
 
+    def build_pool(n, seed):
+        def build():
+            if len(scenes) == 1:
+                return make_pool_sampler(scenes[0], cfg, n_pool=n, seed=seed,
+                                         device=dev)
+            return _pool_multi(scenes, cfg, n, seed, dev)
+        return shared(build)
+
     sampler = pool = None
     if tc.scan_chunk > 0 and len(scenes) == 1:
         sampler = make_device_sampler(scenes[0], cfg, seed=tc.seed,
                                       device=dev)
         if sampler is None:
-            pool = make_pool_sampler(scenes[0], cfg, n_pool=tc.pool_size,
-                                     seed=tc.seed, device=dev)
+            pool = build_pool(tc.pool_size, tc.seed)
         images, Ps = scenes[0].images, scenes[0].Ps
     elif tc.scan_chunk > 0 and len({sc.images.shape for sc in scenes}) == 1:
-        images, Ps, pool = make_pool_sampler_multi(
-            scenes, cfg, n_pool=tc.pool_size, seed=tc.seed, device=dev)
+        # one pool over the scenes' views stacked
+        # (make_pool_sampler_multi's)
+        images = np.concatenate([sc.images for sc in scenes])
+        Ps = np.concatenate([sc.Ps for sc in scenes])
+        pool = build_pool(tc.pool_size, tc.seed)
+    if mesh is not None and sampler is None and pool is None:
+        raise ValueError("mesh training requires a device-samplable scene")
 
     if sampler is not None or pool is not None:
         images = gather_copy(images, cfg, dev)
         Ps = torch.as_tensor(np.asarray(Ps), dtype=torch.float32, device=dev)
-
-        def build_pool(n, seed):
-            if len(scenes) == 1:
-                return make_pool_sampler(scenes[0], cfg, n_pool=n, seed=seed,
-                                         device=dev)
-            return _pool_multi(scenes, cfg, n, seed, dev)
 
         # held-out eval split: a pool from a seed stream the training pool
         # never draws from

@@ -5,7 +5,8 @@ Port of ``surfacenet_tpu/utils/observability.py``:
     program, for achieved-against-peak utilisation;
   * ``Metrics``: counters, gauges and stage timers, flushed as one JSON
     line (``run_sweep(metrics=)``, ``cli reconstruct --metrics-out``), with
-    the reference's keys and record;
+    the reference's keys and record; one writer a job (the sharded sweep
+    drops it on every rank but 0, and ``cli`` makes it on rank 0 only);
   * ``trace``: a ``torch.profiler`` capture of a block, written as a Chrome
     trace when ``SURFACENET_TORCH_PROFILER_DIR`` is set, a no-op otherwise.
 
@@ -150,9 +151,15 @@ def trace(name: str = "surfacenet"):
 def scaling_efficiency(
     cubes_per_s: Dict[int, float], base_n: Optional[int] = None
 ) -> Dict[int, float]:
-    """Weak-scaling efficiency: throughput(n) / (n/base * throughput(base))."""
+    """Weak-scaling efficiency: throughput(n) / (n/base * throughput(base)).
+
+    ``cubes_per_s`` maps a rank count to cubes/s, or to the
+    ``ShardedSweepStats`` of a sweep over that many ranks (its
+    ``cubes_per_s``)."""
     if not cubes_per_s:
         return {}
+    cubes_per_s = {n: float(getattr(v, "cubes_per_s", v))
+                   for n, v in cubes_per_s.items()}
     base_n = base_n or min(cubes_per_s)
     base = cubes_per_s[base_n]
     return {n: v / (base * n / base_n) for n, v in cubes_per_s.items()}

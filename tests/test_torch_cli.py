@@ -8,7 +8,8 @@ completeness within 2%.  ``eval`` against the reference's metrics within
 The reference sweeps once per scene, shared by the module.
 ``reconstruct --min-component`` against the reference's ``.ply`` (same
 count, agreement >= 0.99); ``--sharded`` on one device exits with the
-reference's message unless ``--allow-unsharded``; ``export`` round-trips
+reference's message unless ``--allow-unsharded`` (on 2 ranks:
+tests/test_torch_sweep_sharded.py); ``export`` round-trips
 within 1e-5, the reference's self-check bound.
 """
 
@@ -271,21 +272,27 @@ def test_sharded_request_on_one_device(tmp_path, scan_dir, capsys):
 
 
 def test_sharded_request_on_several_cards_raises(monkeypatch):
-    """Where the sharded sweep could run (2 cards, block_axis 2), the port
-    raises instead of sweeping on one card."""
-    from surfacenet_tpu_torch.cli import _single_device_config
+    """Where the sharded sweep can run (a world of 2 ranks, block_axis 2)
+    the layout is sharded with the config unchanged (it once raised here:
+    the sharded sweep was not ported); a world block_axis 2 does not
+    divide (3 ranks) takes ``--allow-unsharded``'s single-device sweep."""
+    from surfacenet_tpu_torch.cli import _sweep_layout
     from surfacenet_tpu_torch.config import baseline_config
+    from surfacenet_tpu_torch.parallel import distributed
 
     class Args:
         sharded = allow_unsharded = True
 
     cfg = baseline_config("highres_sharded")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        _single_device_config(Args, cfg, torch.device("cuda"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
-    got = _single_device_config(Args, cfg, torch.device("cuda"))
-    assert got.mesh.block_axis == 1
+    joined = []
+    monkeypatch.setattr(distributed, "init_distributed",
+                        lambda device: joined.append(device))
+    monkeypatch.setattr(distributed, "process_info", lambda: (0, 2))
+    got, sharded = _sweep_layout(Args, cfg, torch.device("cpu"))
+    assert sharded and got == cfg and joined == [torch.device("cpu")]
+    monkeypatch.setattr(distributed, "process_info", lambda: (0, 3))
+    got, sharded = _sweep_layout(Args, cfg, torch.device("cpu"))
+    assert not sharded and got.mesh.block_axis == 1
     assert got.replace(mesh=cfg.mesh) == cfg
 
 

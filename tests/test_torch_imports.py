@@ -69,7 +69,13 @@ def test_port_imports_without_jax_pil_or_reference_package():
             "surfacenet_tpu_torch.cli", "surfacenet_tpu_torch.native",
             "surfacenet_tpu_torch.ops.denoise",
             "surfacenet_tpu_torch.data.colmap",
-            "surfacenet_tpu_torch.utils.observability"} <= names
+            "surfacenet_tpu_torch.utils.observability",
+            "surfacenet_tpu_torch.parallel.distributed",
+            "surfacenet_tpu_torch.parallel.mesh",
+            "surfacenet_tpu_torch.parallel.halo",
+            "surfacenet_tpu_torch.parallel.sweep_sharded",
+            "surfacenet_tpu_torch.utils.debug",
+            "surfacenet_tpu_torch.utils.viz"} <= names
 
 
 def test_sources_name_no_reference_imports():

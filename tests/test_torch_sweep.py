@@ -274,19 +274,33 @@ def test_run_sweep_with_refinement_and_kernel_path_config(scene):
 
 
 def test_sweep_rejects_unported_branches(scene):
+    """``fusion_mode="median"`` is not ported and raises.  The two other
+    cases this test once refused now run: ``ray_pool_mode="affine_matmul"``
+    gives the points of the affine vote (``affine_pallas``), and
+    ``mesh.block_axis=2`` sweeps on one device, as the reference's
+    ``run_sweep`` does, with block_axis 1's points."""
     _, tcfg = _configs()
-    for bad in (
-        tcfg.replace(fusion=dataclasses.replace(tcfg.fusion,
-                                                fusion_mode="median")),
-        tcfg.replace(fusion=dataclasses.replace(
-            tcfg.fusion, ray_pool_mode="affine_matmul")),
-        # the sharded sweep; the CLI strips it under --allow-unsharded
-        tcfg.replace(mesh=dataclasses.replace(tcfg.mesh, block_axis=2)),
-    ):
-        with pytest.raises(NotImplementedError):
-            T.run_sweep(scene.images, scene.Ps, scene.bbox_min,
-                        scene.bbox_max, bad, T.photoconsistency_predictor,
-                        device="cpu")
+
+    def points(cfg):
+        store, _ = T.run_sweep(scene.images, scene.Ps, scene.bbox_min,
+                               scene.bbox_max, cfg,
+                               T.photoconsistency_predictor, device="cpu")
+        pts = store.merge()[0]
+        return pts[np.lexsort(pts.T)]
+
+    with pytest.raises(NotImplementedError):
+        points(tcfg.replace(fusion=dataclasses.replace(
+            tcfg.fusion, fusion_mode="median")))
+    vote = points(tcfg.replace(fusion=dataclasses.replace(
+        tcfg.fusion, ray_pool_mode="affine_pallas")))
+    matmul = points(tcfg.replace(fusion=dataclasses.replace(
+        tcfg.fusion, ray_pool_mode="affine_matmul")))
+    assert len(vote) > 100
+    np.testing.assert_array_equal(matmul, vote)
+    np.testing.assert_array_equal(
+        points(tcfg.replace(mesh=dataclasses.replace(tcfg.mesh,
+                                                      block_axis=2))),
+        points(tcfg))
 
 
 def test_host_planning_matches_reference():

@@ -466,13 +466,29 @@ def test_cli_train_checkpoint_loads_into_reconstruct(tmp_path, scenes):
 
 
 @pytest.mark.parametrize("flag", ["--sharded", "--allow-unsharded"])
-def test_cli_train_refuses_mesh_flags(flag, scenes):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        cli_main(["train", flag, "--steps", "2", "--device", "cpu"] + TINY)
-    _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tt.train_surfacenet(scenes[1], tc, n_steps=1, mesh=object(),
-                            device="cpu")
+def test_cli_train_refuses_mesh_flags(flag, scenes, tmp_path):
+    """The flags this test once refused (data-parallel training was not
+    ported) now train: without a process group ``--sharded`` trains on a
+    mesh of one rank and ``--allow-unsharded`` alone changes nothing, so
+    both give plain ``cli train``'s run; ``train_surfacenet`` on a
+    one-rank mesh is the single-process run (2 ranks:
+    tests/test_torch_train_parallel.py)."""
+    from surfacenet_tpu_torch.parallel.mesh import make_mesh
+
+    runs = [cli_main(["train", *extra, "--steps", "2", "--device", "cpu",
+                      "--checkpoint-dir", str(tmp_path / str(i))] + TINY)
+            for i, extra in enumerate(([flag], []))]
+    (s1, l1), (s2, l2) = runs
+    assert l1.losses == l2.losses and s1.step == s2.step == 2
+    for k, v in s1.model.state_dict().items():
+        assert torch.equal(v, s2.model.state_dict()[k]), k
+    _, tc = _cfgs(scan_chunk=1)
+    a, la = tt.train_surfacenet(scenes[1], tc, n_steps=1, mesh=make_mesh(),
+                                device="cpu")
+    b, lb = tt.train_surfacenet(scenes[1], tc, n_steps=1, device="cpu")
+    assert la.losses == lb.losses
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(v, b.model.state_dict()[k]), k
 
 
 def test_cli_train_needs_a_card_unless_asked_for_the_cpu(tmp_path):
