@@ -120,8 +120,11 @@ the run with a non-zero exit code and no result line):
       (``cli.make_pair_selector``, as ``reconstruct --pairnet``), and the
       pair net with ``fusion_mode="consensus"``; fails unless each run
       launched the gather and the vote (all on the ``tile`` route) and
-      wrote finite points; accuracy and completeness against the analytic
-      sphere are reported, not gated; stage times beside phase 5's;
+      wrote finite points, and unless the consensus gates changed the pair
+      weights of at least one cube (``consensus_probe``: the cubes
+      reweighted and the smallest gate are reported); accuracy and
+      completeness against the analytic sphere are reported, not gated;
+      stage times beside phase 5's;
   17. the eval-split, COLMAP and single-card high-res entry points at
       their presets' widths (the paper's, unfused inference), a seeded
       random net at ``fusion.tau=0.5``: (a) ``cli.main(["reconstruct-all",
@@ -174,10 +177,40 @@ the run with a non-zero exit code and no result line):
       (its time reported), and ``run_sweep`` with ``ray_pool_mode``
       ``affine_matmul`` against ``affine_pallas`` (dtu9_full, prepass off,
       the photoconsistency predictor): equal point sets;
-  19. the result line.
+  19. trained weights end to end: the op-point scenes of
+      ``scripts/op_point_qualify.py`` (a sphere of 12 views of 600x800,
+      radius 30, focal 200; tori of 12 views of 600x800, focal 800; both
+      rendered by the worker process), each written as 12 PNGs, with
+      ground truth ``surface_points(8000)``: (a) ``cli.main(["reconstruct",
+      "--scan", ..., "--preset", "dtu9_full", "--checkpoint",
+      "weights_torch/golden_<scene>_fast64_30k.npz"])`` at the preset's tau
+      0.7, then ``cli eval`` (unclamped, as the record): fails unless the
+      gather and the vote launched once a batch at least and accuracy,
+      completeness and the point count each lie within 10% of the JAX
+      package's record (``results/op_point_r05.json``,
+      ``shipped_combo_refine_on``); stage times, cubes/s and peak memory
+      reported; (b) the sphere's scan with ``model.fused_inference=true``:
+      fails unless the conv kernel ran on the ``wgmma`` and ``halo_mma``
+      routes alone, 7 launches a batch at least, >= 0.99 of each sweep's
+      points have a point of the other among their 27 nearest voxel
+      centres (``one_voxel_agreement``), and points, accuracy and
+      completeness lie within 2% of (a)'s (the exact voxel agreement is
+      reported: the two forwards round differently in bf16, which moves a
+      surface voxel along its ray now and then); (c) the trained forward,
+      unfused, on the card against the CPU on the 2 items of (a)'s first
+      sphere batch with the most voxels above tau on the card, bf16 on the
+      card against float32 on the CPU, and bf16 and float32 on both: fails
+      unless the voxels above tau agree on >= 0.99 of their union in each
+      (the largest probability differences are reported); (d)
+      ``cli.main(["export", ..., "--set", "model.fused_inference=true",
+      "--batch", "120", "--selfcheck"])`` with the sphere's weights: fails
+      above 1e-5, or unless the loaded program, called once, launched the
+      conv kernel 7 times (export seconds and bytes reported);
+  20. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
-non-zero without one.  Writes only to a temporary directory and to the
+non-zero without one.  Reads the shipped weights under ``weights_torch/``.
+Writes only to a temporary directory and to the
 package's git-ignored build directory; its worker process and phase 18's
 two rank processes end before the script does.  Needs no PIL.
 """
@@ -208,7 +241,7 @@ from surfacenet_tpu_torch.models.convert import (
     load_npz, load_surfacenet, save_npz,
 )
 from surfacenet_tpu_torch.models.surfacenet import (
-    forward_flops, fused_infer_apply, fused_params, init_surfacenet,
+    DTYPES, forward_flops, fused_infer_apply, fused_params, init_surfacenet,
     make_predictor,
 )
 from surfacenet_tpu_torch.ops.conv3d import conv3d_plain
@@ -256,6 +289,18 @@ from surfacenet_tpu_torch.utils.ply import read_ply, write_ply
 # the shipped pair net, converted (models/convert.py)
 PAIRNET = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "weights_torch", "pairnet_10000.npz")
+
+# the shipped trained SurfaceNet weights, converted (models/convert.py)
+TRAINED = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "weights_torch", "golden_{scene}_fast64_30k.npz")
+# the JAX package's record of dtu9_full with those weights on the op-point
+# scenes of scripts/op_point_qualify.py (results/op_point_r05.json,
+# "shipped_combo_refine_on"); phase 19 holds the port to it within 10%
+OP_POINT_RECORD = {
+    "sphere": {"acc_mm": 0.6872, "comp_mm": 0.5653, "n_pts": 24575},
+    "tori": {"acc_mm": 0.8888, "comp_mm": 0.9704, "n_pts": 9905},
+}
+OP_POINT_BAND = 0.10
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32
 # operations/s outside the tensor cores, bf16 tensor-core FLOP/s
@@ -838,9 +883,10 @@ def occlusion_phase(dev, tmp, main_sweep):
         reset_counts()
         t0 = time.perf_counter()
         selector = cli.make_pair_selector(pairnet, c, occ.images, dev)
-        n, st, timings = reconstruct_scan(scan, c, photoconsistency_predictor,
-                                          f"{tmp}/occ_{name}.ply", dev,
-                                          selector)
+        with consensus_probe() as probe:
+            n, st, timings = reconstruct_scan(
+                scan, c, photoconsistency_predictor, f"{tmp}/occ_{name}.ply",
+                dev, selector)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"warp_gather": warp_gather.launches,
@@ -855,6 +901,8 @@ def occlusion_phase(dev, tmp, main_sweep):
                "cubes": st.n_cubes_after_prefilter,
                "cubes_per_s": st.n_cubes_after_prefilter / st.sweep_s,
                "launches": launches}
+        if c.fusion.fusion_mode == "consensus":
+            run["consensus"] = probe.readings()
         runs.append(run)
         log(f"occluded scene {json.dumps(run)}")
         if (launches["warp_gather"] <= 0 or launches["affine_vote"] <= 0
@@ -864,12 +912,64 @@ def occlusion_phase(dev, tmp, main_sweep):
                                f"and the vote on its tile route: {launches}")
         if n <= 0 or len(pts) != n or not np.isfinite(pts).all():
             raise RuntimeError(f"{name}: wrote {n} points ({len(pts)} read)")
+        if "consensus" in run and run["consensus"]["cubes_reweighted"] <= 0:
+            raise RuntimeError(
+                f"{name}: consensus fusion kept every cube's mean weights "
+                f"({run['consensus']}): it changed no output")
     log(f"stage times beside phases 4 and 5 (clean sphere, same preset): "
         f"{json.dumps(main_sweep)}; the selector's wall "
         f"{secs[dev]:.3f} s beside the pairnet run's sweep stage "
         f"{runs[1]['stages']['sweep_s']:.3f} s")
     return {"pair_train": pair_train, "selection": selection,
             "runs": runs}
+
+
+class consensus_probe:
+    """Within the block, every ``fuse_pairs_consensus`` call of the sweep
+    records how many of its cubes had their pair weights changed by the
+    consensus gates (the weights it passes on to ``fuse_pairs`` against
+    the mean fusion's) and the smallest gate; ``readings()`` sums them."""
+
+    def __enter__(self):
+        from surfacenet_tpu_torch.ops import fusion as fusion_mod
+        from surfacenet_tpu_torch.pipeline import sweep as sweep_mod
+
+        self.mods = (fusion_mod, sweep_mod)
+        self.real = (fusion_mod.fuse_pairs, sweep_mod.fuse_pairs_consensus)
+        self.cubes = self.reweighted = 0
+        self.min_gate = 1.0
+        passed = []
+
+        def keep(probs, weights, valid=None, eps=1e-8):
+            passed.append(weights)
+            return self.real[0](probs, weights, valid, eps)
+
+        def probed(probs, weights, valid=None, **kw):
+            passed.clear()
+            fusion_mod.fuse_pairs = keep
+            try:
+                out = self.real[1](probs, weights, valid, **kw)
+            finally:
+                fusion_mod.fuse_pairs = self.real[0]
+            gated = passed[0].reshape(-1, weights.shape[-1])
+            mean = weights.reshape(-1, weights.shape[-1])
+            self.cubes += mean.shape[0]
+            self.reweighted += int((gated != mean).any(dim=-1).sum())
+            ratio = gated[mean > 0] / mean[mean > 0]
+            if ratio.numel():
+                self.min_gate = min(self.min_gate, ratio.min().item())
+            return out
+
+        sweep_mod.fuse_pairs_consensus = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0].fuse_pairs, self.mods[1].fuse_pairs_consensus = \
+            self.real
+
+    def readings(self):
+        return {"cubes": self.cubes, "cubes_reweighted": self.reweighted,
+                "min_gate": self.min_gate}
 
 
 # the reference's Metrics record of a run_sweep with the refinement
@@ -1206,6 +1306,267 @@ class timed_chunks:
         train_surface.train_steps_scan = self.real
 
 
+class first_batch:
+    """Within the block, each predictor ``make_predictor`` returns (as the
+    CLI builds it) keeps a copy of its first call's input in ``self.x``."""
+
+    def __enter__(self):
+        from surfacenet_tpu_torch.models import surfacenet as model_mod
+
+        self.x, self.mod, self.real = None, model_mod, model_mod.make_predictor
+
+        def make(*args, **kw):
+            predict = self.real(*args, **kw)
+
+            def keep(x, origins=None):
+                if self.x is None:
+                    self.x = x.clone()
+                return predict(x, origins)
+
+            keep.module, keep.in_dtype = predict.module, predict.in_dtype
+            return keep
+
+        model_mod.make_predictor = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_predictor = self.real
+
+
+def within(got, want, frac=OP_POINT_BAND):
+    return abs(got - want) <= frac * abs(want)
+
+
+def one_voxel_agreement(a, b, s):
+    """The smaller of the shares of ``a``'s points with a point of ``b``
+    among their 27 nearest voxel centres and of ``b``'s with one of
+    ``a``'s: two sweeps' voxel centres on one lattice of pitch ``s``."""
+    lo = np.minimum(a.min(axis=0), b.min(axis=0))
+    ka = np.round((a - lo) / s).astype(np.int64) + 1
+    kb = np.round((b - lo) / s).astype(np.int64) + 1
+    m = int(max(ka.max(), kb.max())) + 2
+
+    def key(k):
+        return (k[:, 0] * m + k[:, 1]) * m + k[:, 2]
+
+    def share(p, q):
+        hit = np.zeros(len(p), bool)
+        for off in np.ndindex(3, 3, 3):
+            hit |= np.isin(key(p + np.asarray(off) - 1), key(q))
+        return float(hit.mean())
+
+    return min(share(ka, kb), share(kb, ka))
+
+
+def trained_phase(dev, tmp, scenes):
+    """Phase 19: the shipped trained weights end to end at ``dtu9_full``
+    on the op-point scenes of ``results/op_point_r05.json``: (a) ``cli
+    reconstruct`` and ``cli eval`` of each scene from PNGs, (b) the sphere
+    fused, (c) the trained forward on the card against the CPU, (d) ``cli
+    export --selfcheck`` of the fused forward.  ``scenes`` maps a scene's
+    name to its rendered scene.  Returns the readings and each run's
+    kernel launches."""
+    cfg = baseline_config("dtu9_full")
+    out, launches = {"runs": {}}, {}
+    first = None
+    for name, sc in scenes.items():
+        scan_dir, ply = f"{tmp}/op_{name}", f"{tmp}/op_{name}.ply"
+        gt_ply = f"{tmp}/op_{name}_gt.ply"
+        t0 = time.perf_counter()
+        write_scan(scan_dir, sc.images, sc.Ps, sc.bbox_min, sc.bbox_max)
+        write_ply(gt_ply, sc.surface_points(8000))
+        write_s = time.perf_counter() - t0
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with first_batch() as fb:
+            n, st, tm = cli.main([
+                "reconstruct", "--scan", scan_dir, "--preset", "dtu9_full",
+                "--checkpoint", TRAINED.format(scene=name), "--out", ply])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = launch_counts()
+        if first is None:
+            first = fb.x
+        # the record's metric is unclamped: a max distance beyond the scene
+        ev = cli.main(["eval", "--pred", ply, "--gt", gt_ply,
+                       "--max-dist", "1e9"])
+        want = OP_POINT_RECORD[name]
+        run = {"points": n, "acc_mm": ev["acc_mean_mm"],
+               "comp_mm": ev["comp_mean_mm"], "overall_mm": ev["overall_mm"],
+               "record": want, "cubes": st.n_cubes_after_prefilter,
+               "nonempty": st.n_cubes_nonempty, "batches": st.n_batches,
+               "refetched": st.n_refetched,
+               "cubes_per_s": st.n_cubes_after_prefilter / st.sweep_s,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "refine_passes": st.refine_info["passes"],
+               "refine_max_shift_px": st.refine_info["max_shift_px"],
+               "stages": tm, "wall_s": wall, "write_s": write_s,
+               "launches": launches[name]}
+        out["runs"][name] = run
+        log(f"trained {name} {json.dumps(run)}")
+        check_sweep_launches(f"trained {name}", launches[name], st.n_batches)
+        if n <= 0:
+            raise RuntimeError(f"trained {name}: no points")
+        for key, ref in (("acc_mm", want["acc_mm"]),
+                         ("comp_mm", want["comp_mm"]),
+                         ("points", want["n_pts"])):
+            if not within(run[key], ref):
+                raise RuntimeError(
+                    f"trained {name}: {key} {run[key]} is not within "
+                    f"{OP_POINT_BAND:.0%} of the JAX record's {ref}")
+
+    sphere_scan = f"{tmp}/op_sphere"
+    sphere_w = TRAINED.format(scene="sphere")
+    tau = cfg.fusion.tau
+    fused_cfg = dataclasses.replace(cfg.model, fused_inference=True)
+    f32 = dataclasses.replace(cfg.model, dtype="float32")
+
+    def forward(mcfg, d, x):
+        net = load_surfacenet(sphere_w, mcfg)
+        with torch.inference_mode():
+            return make_predictor(net, mcfg, d)(
+                x.to(d, DTYPES[mcfg.dtype]), None).float().cpu()
+
+    def above_tau(pa, pb):
+        a, b = pa > tau, pb > tau
+        return {"above_tau": [int(a.sum()), int(b.sum())],
+                "agreement": int((a & b).sum()) / max(int((a | b).sum()), 1),
+                "max_prob_diff": (pa - pb).abs().max().item()}
+
+    # (b) the sphere's scan again, fused: the conv kernel on its two live
+    # routes, the occupied voxels against (a)'s
+    reset_counts()
+    t0 = time.perf_counter()
+    n_f, st_f, tm_f = cli.main([
+        "reconstruct", "--scan", sphere_scan, "--preset", "dtu9_full",
+        "--checkpoint", sphere_w, "--out", f"{tmp}/op_sphere_fused.ply",
+        "--set", "model.fused_inference=true"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["sphere_fused"] = dict(
+        launch_counts(), conv3d=conv3d.launches,
+        conv3d_routes=dict(conv3d.route_launches))
+    ev = cli.main(["eval", "--pred", f"{tmp}/op_sphere_fused.ply", "--gt",
+                   f"{tmp}/op_sphere_gt.ply", "--max-dist", "1e9"])
+    pa = read_ply(f"{tmp}/op_sphere.ply")[0]
+    pf = read_ply(f"{tmp}/op_sphere_fused.ply")[0]
+    fused = {"points": n_f, "acc_mm": ev["acc_mean_mm"],
+             "comp_mm": ev["comp_mean_mm"],
+             "unfused_points": out["runs"]["sphere"]["points"],
+             "unfused_acc_mm": out["runs"]["sphere"]["acc_mm"],
+             "unfused_comp_mm": out["runs"]["sphere"]["comp_mm"],
+             "voxel_agreement": voxel_set_agreement(pf, pa),
+             "one_voxel_agreement": one_voxel_agreement(
+                 pf, pa, cfg.voxel.voxel_size_mm),
+             "cubes_per_s": st_f.n_cubes_after_prefilter / st_f.sweep_s,
+             "stages": tm_f, "wall_s": wall,
+             "launches": launches["sphere_fused"]}
+    # where the two forwards part: their voxels above tau on (a)'s first
+    # batch; and without the prepass, the unfused sweep twice (run to run)
+    # and the fused one
+    card16 = forward(cfg.model, dev, first)
+    fused["first_batch_forward"] = above_tau(card16, forward(fused_cfg, dev,
+                                                             first))
+    plys = {}
+    for name, extra in (("unfused", []), ("unfused_again", []),
+                        ("fused", ["--set", "model.fused_inference=true"])):
+        plys[name] = f"{tmp}/op_sphere_noprepass_{name}.ply"
+        cli.main(["reconstruct", "--scan", sphere_scan, "--preset",
+                  "dtu9_full", "--checkpoint", sphere_w, "--out", plys[name],
+                  "--set", "sweep.refine_calib=false", *extra])
+    pts = {k: read_ply(v)[0] for k, v in plys.items()}
+    fused["no_prepass"] = {
+        "run_to_run_agreement": voxel_set_agreement(pts["unfused"],
+                                                    pts["unfused_again"]),
+        "voxel_agreement": voxel_set_agreement(pts["fused"],
+                                               pts["unfused"]),
+        "points": {k: len(v) for k, v in pts.items()}}
+    out["sphere_fused"] = fused
+    log(f"trained sphere fused {json.dumps(fused)}")
+    check_sweep_launches("trained sphere fused", launches["sphere_fused"],
+                         st_f.n_batches)
+    routes = launches["sphere_fused"]["conv3d_routes"]
+    n_layers = len(conv_layers(cfg.model, cfg.voxel.cube_size))
+    if (launches["sphere_fused"]["conv3d"] < n_layers * st_f.n_batches
+            or routes["wmma_scalar"] or not routes["wgmma"]
+            or not routes["halo_mma"]):
+        raise RuntimeError(f"the fused sweep's convs ran {routes}, not on "
+                           f"the wgmma and halo_mma routes alone")
+    # the two forwards round differently in bf16 (BatchNorm folded into
+    # the bf16 kernels, or applied to the bf16 conv outputs), which moves
+    # a surface voxel along its ray by one now and then: every point must
+    # have a counterpart within one voxel, and the metrics must hold
+    if (fused["one_voxel_agreement"] < 0.99
+            or not within(fused["acc_mm"], fused["unfused_acc_mm"], 0.02)
+            or not within(fused["comp_mm"], fused["unfused_comp_mm"], 0.02)
+            or not within(n_f, fused["unfused_points"], 0.02)):
+        raise RuntimeError(f"the fused sweep differs from the unfused one: "
+                           f"{fused}")
+
+    # (c) the trained forward, unfused, on the card against the CPU on the
+    # 2 items of (a)'s first sphere batch with the most voxels above tau
+    # on the card: the card's bf16 against the CPU's float32 (the forward
+    # Tier-1 holds to the JAX package), and each precision on both
+    top = torch.argsort((card16 > tau).flatten(1).sum(1),
+                        descending=True)[:2]
+    x2 = first[top.to(first.device)]
+    del first
+    t0 = time.perf_counter()
+    probs = {"card_bf16": card16[top], "card_f32": forward(f32, dev, x2),
+             "cpu_bf16": forward(cfg.model, "cpu", x2),
+             "cpu_f32": forward(f32, "cpu", x2)}
+    cpu_s = time.perf_counter() - t0
+    forward_cmp = {"items": top.tolist(), "batch_items": card16.shape[0],
+                   "tau": tau, "cpu_and_card_s": cpu_s}
+    for a, b in (("card_bf16", "cpu_bf16"), ("card_f32", "cpu_f32"),
+                 ("card_bf16", "cpu_f32")):
+        forward_cmp[f"{a}_vs_{b}"] = above_tau(probs[a], probs[b])
+    out["forward_card_vs_cpu"] = forward_cmp
+    log(f"trained forward card vs CPU {json.dumps(forward_cmp)}")
+    del card16, x2, probs
+    for key in ("card_bf16_vs_cpu_f32", "card_bf16_vs_cpu_bf16",
+                "card_f32_vs_cpu_f32"):
+        if (forward_cmp[key]["above_tau"][0] == 0
+                or forward_cmp[key]["agreement"] < 0.99):
+            raise RuntimeError(f"the trained forward's voxels above tau "
+                               f"differ on the card and on the CPU ({key}) "
+                               f"on more than 1% of their union")
+
+    # (d) cli export --selfcheck of the fused forward at the sweep's batch
+    # (24 cubes x 5 pairs); then the loaded program alone, counted
+    items = cfg.sweep.cube_batch * cfg.fusion.n_view_pairs
+    t0 = time.perf_counter()
+    ex = cli.main(["export", "--checkpoint", sphere_w, "--preset",
+                   "dtu9_full", "--set", "model.fused_inference=true",
+                   "--out", f"{tmp}/fused.pt2", "--batch", str(items),
+                   "--selfcheck"])
+    ex["wall_s"] = time.perf_counter() - t0
+    prog = torch.export.load(f"{tmp}/fused.pt2").module()
+    x = torch.rand((items, cfg.voxel.cube_size, cfg.voxel.cube_size,
+                    cfg.voxel.cube_size, cfg.model.in_channels), device=dev,
+                   generator=torch.Generator(dev).manual_seed(5)) - 0.5
+    reset_counts()
+    with torch.inference_mode():
+        p = prog(x)
+    torch.cuda.synchronize()
+    launches["export_loaded"] = {"conv3d": conv3d.launches,
+                                 "conv3d_routes": dict(conv3d.route_launches)}
+    ex["loaded_conv_launches"] = conv3d.launches
+    ex["loaded_finite"] = bool(torch.isfinite(p).all())
+    out["export"] = ex
+    log(f"trained fused export {json.dumps(ex)}")
+    del prog, x, p
+    torch.cuda.empty_cache()
+    if ex["selfcheck_err"] is None or ex["selfcheck_err"] > 1e-5:
+        raise RuntimeError(f"the fused export's self-check failed: {ex}")
+    if ex["loaded_conv_launches"] != n_layers or not ex["loaded_finite"]:
+        raise RuntimeError(f"the loaded fused program launched the conv "
+                           f"kernel {ex['loaded_conv_launches']} times for "
+                           f"{n_layers} convs: {ex}")
+    return out, launches
+
+
 def rank_job(path) -> int:
     """One rank of phase 18, ``python3 chip_smoke.py --rank-job JOB``:
     started with the torchrun environment by ``launch_local``; runs the
@@ -1514,6 +1875,24 @@ def run(pool) -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # the registered conv op's first call: defined with torch.library, it
+    # imports nothing; a custom_op's first call would import torch._dynamo
+    # (timed here in a fresh interpreter)
+    xo = torch.zeros((1, 8, 8, 8, 8), dtype=torch.bfloat16, device=dev)
+    wo = torch.zeros((216, 8), dtype=torch.bfloat16, device=dev)
+    bo = torch.zeros((8,), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    conv3d(xo, wo, bo)
+    torch.cuda.synchronize()
+    op_first_ms = 1e3 * (time.perf_counter() - t0)
+    dynamo_import_s = float(subprocess.run(
+        [sys.executable, "-c", "import time, torch; t = time.perf_counter(); "
+         "import torch._dynamo; print(time.perf_counter() - t)"],
+        capture_output=True, text=True, timeout=300, check=True).stdout)
+    log(f"the conv op's first call {op_first_ms:.2f} ms; import "
+        f"torch._dynamo {dynamo_import_s:.2f} s")
+    del xo, wo, bo
 
     phase(3, "scene")
     t0 = time.perf_counter()
@@ -1528,6 +1907,14 @@ def run(pool) -> int:
     # sphere-traced on the host (~20 s), in the worker process
     tori_job = pool.apply_async(make_tori_scene, kwds=dict(
         n_views=12, hw=(600, 800), focal=1000.0))
+    # phase 19's op-point scenes, as scripts/op_point_qualify.py renders
+    # them, after it in the same worker
+    op_jobs = {
+        "sphere": pool.apply_async(make_sphere_scene, kwds=dict(
+            n_views=12, hw=(600, 800), radius=30.0, focal=200.0)),
+        "tori": pool.apply_async(make_tori_scene, kwds=dict(
+            n_views=12, hw=(600, 800), focal=800.0)),
+    }
 
     cfg = baseline_config("dtu9_full")
     D, s = cfg.voxel.cube_size, cfg.voxel.voxel_size_mm
@@ -2116,6 +2503,20 @@ def run(pool) -> int:
     del mask_items
     log(f"sharded phase {time.perf_counter() - t0:.1f} s")
 
+    phase(19, "trained weights end to end: cli reconstruct and cli eval "
+          "with weights_torch/golden_{sphere,tori}_fast64_30k.npz on the "
+          "op-point scenes (dtu9_full, tau 0.7) against the JAX record, the "
+          "sphere fused, the trained forward card vs CPU, cli export of the "
+          "fused forward")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    op_scenes = {k: job.get(timeout=600) for k, job in op_jobs.items()}
+    log(f"op-point scenes waited {time.perf_counter() - t0:.2f} s")
+    trained, trained_launches = trained_phase(dev, tmp.name, op_scenes)
+    del op_scenes
+    log(f"trained phase {time.perf_counter() - t0:.1f} s")
+    sweeps = ("sphere", "tori", "sphere_fused")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -2134,6 +2535,9 @@ def run(pool) -> int:
             "sharded_path_launches": {
                 k: v["warp_gather"] for k, v in sharded_launches.items()},
             "sharded": sharded,
+            "trained_path_launches": {
+                k: trained_launches[k]["warp_gather"] for k in sweeps},
+            "trained": trained,
         },
         {
             "name": "affine_vote", "route": "cuda",
@@ -2153,12 +2557,20 @@ def run(pool) -> int:
                 k: v["affine_vote"] for k, v in split_launches.items()},
             "sharded_path_launches": {
                 k: v["affine_vote"] for k, v in sharded_launches.items()},
+            "trained_path_launches": {
+                k: trained_launches[k]["affine_vote"] for k in sweeps},
         },
         {
             "name": "conv3d", "route": "cuda",
             "source": "surfacenet_tpu_torch/csrc/conv3d.cu",
             "replaces": "surfacenet_tpu/ops/pallas/conv3d.py:78",
+            "path": "reconstruct --set model.fused_inference=true; the "
+                    "loaded cli export program (torch.ops."
+                    "surfacenet_tpu_torch.conv3d)",
             "launches": launches_f["conv3d"],
+            "trained_path_launches": {
+                k: trained_launches[k]["conv3d"]
+                for k in ("sphere_fused", "export_loaded")},
             "max_abs_err": max(layer["max_abs_err"] for layer in layers),
             # one forward: the seven layers' sums
             "ms": conv_ms,
@@ -2200,7 +2612,7 @@ def run(pool) -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(19, "result")
+    phase(20, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,7 +47,9 @@ over the ranks.  ``reconstruct-all`` sweeps every scan of an eval split
 (one ledger and one ``.ply`` per scan, ``report.json`` with per-scan and
 split-mean metrics against ``--gt-dir``).  ``export`` writes the trained
 forward as a ``torch.export`` program with the weights in it
-(``torch.export.load(path).module()`` runs it).  ``train`` trains
+(``torch.export.load(path).module()`` runs it; a fused forward's program
+calls the registered conv op, so its loader imports
+``surfacenet_tpu_torch.ops.cuda.conv3d`` first).  ``train`` trains
 SurfaceNet on a synthetic golden
 scene or a scan with its ground-truth ``.ply`` and writes ``step_N/``
 checkpoints; ``train-pairnet`` triplet-trains the pair net on the
@@ -542,10 +544,15 @@ def cmd_export(args):
     The program has the checkpoint's weights in it and a fixed
     ``(batch, D, D, D, in_channels)`` float32 -> ``(batch, D, D, D)``
     signature; a serving process loads it with
-    ``torch.export.load(path).module()``, without the port's model code.
-    It is the unfused forward (``SurfaceNet.forward`` in the config's
-    dtype); the fused forward calls kernels loaded with ctypes, which
-    ``torch.export`` cannot trace, so ``model.fused_inference`` raises.
+    ``torch.export.load(path).module()``, without the port's model code
+    or config.  It is the predictor's module: ``SurfaceNet.forward`` in
+    the config's dtype, or with ``model.fused_inference`` the fused
+    forward (``FusedSurfaceNet``, BatchNorm folded), whose program calls
+    the registered conv op ``torch.ops.surfacenet_tpu_torch.conv3d``.  A
+    process that loads a fused program imports
+    ``surfacenet_tpu_torch.ops.cuda.conv3d`` first, which registers the op
+    (and builds the kernel from the package's source at its first launch);
+    that import is the one difference from the reference's artifact.
     Returns {"out", "bytes", "export_s", "selfcheck_err"}.
     """
     import os
@@ -558,12 +565,6 @@ def cmd_export(args):
 
     dev = resolve_device(args.device)
     cfg = _load_config(args)
-    if cfg.model.fused_inference:
-        raise NotImplementedError(
-            "export of the fused forward (model.fused_inference=true) is not "
-            "ported (ROADMAP A8): its convs are CUDA kernels loaded with "
-            "ctypes, which torch.export cannot trace; export the unfused "
-            "forward (model.fused_inference=false)")
     predict = make_predictor(load_surfacenet(args.checkpoint, cfg.model),
                              cfg.model, dev)
     D = cfg.voxel.cube_size

@@ -18,6 +18,20 @@ format ``cli reconstruct --checkpoint`` reads.  Reading the reference's
 Orbax checkpoints needs the JAX stack, so the conversion runs where JAX is
 installed: load with ``surfacenet_tpu.train.train_surface.load_pretrained``,
 map the leaves to numpy, then ``save_npz(params_from_jax(v), path)``.
+``weights_torch/golden_{sphere,tori}_fast64_30k.npz`` (16,460,382 bytes
+each: 4,110,337 float32 values and 11 BatchNorm step counters) are the
+reference's ``weights/golden_{sphere,tori}_fast64_30k`` converted so::
+
+    cfg = Config(model=ModelConfig.fast64())  # surfacenet_tpu.config
+    # parameters do not depend on D: restore into an 8^3 template
+    cfg = cfg.replace(voxel=dataclasses.replace(cfg.voxel, cube_size=8))
+    _, v = load_pretrained("weights/golden_sphere_fast64_30k", cfg)
+    v = jax.tree_util.tree_map(np.asarray, v)
+    save_npz(params_from_jax(v),
+             "weights_torch/golden_sphere_fast64_30k.npz")
+
+and load with ``load_surfacenet(path, ModelConfig.fast64())`` (the
+``dtu9_full`` preset's widths).
 
 ``pairnet_params_from_jax`` does the same for the pair net
 (``models/pairnet.py``): ``Conv`` kernels from HWIO to OIHW, not flipped

@@ -417,6 +417,51 @@ def fused_infer_apply(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return torch.sigmoid(logits)
 
 
+class FusedSurfaceNet(nn.Module):
+    """``fused_infer_apply`` as a module: ``fused_params``' tensors held as
+    buffers, so that ``torch.export`` can serialise the fused forward.
+
+    Buffers are named by block and conv (``block{b}_conv{i}_w``, ``_b``;
+    ``block{b}_side_w``, ``_b``; ``head_w``, ``head_b``); each conv's
+    dilation is a plain attribute.  ``forward(x)`` is ``fused_infer_apply``
+    (its convs through ``ops.cuda.conv3d.conv3d``, the registered conv op),
+    so its result is bitwise that function's on the same parameters.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.dilations = []
+        for b, blk in enumerate(params["blocks"]):
+            dils = []
+            for i, (w, bias, dil) in enumerate(blk["convs"]):
+                self.register_buffer(f"block{b}_conv{i}_w", w)
+                self.register_buffer(f"block{b}_conv{i}_b", bias)
+                dils.append(dil)
+            self.dilations.append(dils)
+            self.register_buffer(f"block{b}_side_w", blk["side_w"])
+            self.register_buffer(f"block{b}_side_b", blk["side_b"])
+        self.register_buffer("head_w", params["head_w"])
+        self.register_buffer("head_b", params["head_b"])
+
+    def params(self) -> dict:
+        """The buffers in ``fused_params``' layout."""
+        get = self.get_buffer
+        return {
+            "blocks": [{
+                "convs": [(get(f"block{b}_conv{i}_w"),
+                           get(f"block{b}_conv{i}_b"), dil)
+                          for i, dil in enumerate(dils)],
+                "side_w": get(f"block{b}_side_w"),
+                "side_b": get(f"block{b}_side_b"),
+            } for b, dils in enumerate(self.dilations)],
+            "head_w": self.head_w, "head_b": self.head_b,
+        }
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_infer_apply(self.cfg, self.params(), x)
+
+
 def make_predictor(model: SurfaceNet, cfg: ModelConfig, device):
     """Sweep predictor ``(x (B, D, D, D, 6), origins) -> (B, D, D, D)``.
 
@@ -425,26 +470,25 @@ def make_predictor(model: SurfaceNet, cfg: ModelConfig, device):
     3^3 conv goes through the conv kernel on the card and through its
     plain version on the CPU.  (The reference takes this route only off
     the CPU, because its Pallas kernel cannot run there; the port takes it
-    on the CPU too, which is the route its parity tests drive.)  Otherwise
+    on the CPU too, which is the route its parity tests drive.)  That
+    forward is a ``FusedSurfaceNet`` holding the parameters.  Otherwise
     the model moves to ``device`` in ``cfg.dtype`` with channels-last
-    weights and runs ``SurfaceNet.forward``; that module is the
-    callable's ``module``.  The returned callable carries ``in_dtype`` so
-    the sweep assembles its input batch directly in the model's dtype.
+    weights and runs ``SurfaceNet.forward``.  Either module is the
+    callable's ``module`` (what ``cli export`` serialises).  The returned
+    callable carries ``in_dtype`` so the sweep assembles its input batch
+    directly in the model's dtype.
     """
     if cfg.fused_inference and cfg.upsample_mode == "resize":
-        params = fused_params(model.state_dict(), cfg, device)
-
-        def predictor(x, origins=None):
-            with torch.inference_mode():
-                return fused_infer_apply(cfg, params, x)
+        model = FusedSurfaceNet(cfg, fused_params(model.state_dict(), cfg,
+                                                  device))
     else:
         model = model.to(device=device, dtype=DTYPES[cfg.dtype])
         model = model.to(memory_format=torch.channels_last_3d).eval()
 
-        def predictor(x, origins=None):
-            with torch.inference_mode():
-                return model(x)
+    def predictor(x, origins=None):
+        with torch.inference_mode():
+            return model(x)
 
-        predictor.module = model  # what cli export serialises
+    predictor.module = model
     predictor.in_dtype = cfg.dtype
     return predictor

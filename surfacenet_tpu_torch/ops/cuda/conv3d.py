@@ -26,10 +26,19 @@ that fails to launch raises, it never falls back to another):
 
 The last two read w as it is.
 
-``conv3d`` runs the plain version for tensors on the CPU and the kernel
-for tensors on a CUDA device; there is no other route.
-``conv3d.launches`` counts kernel launches, and ``conv3d.route_launches``
-the launches of each route, by ``conv3d_route``'s name.
+The kernel's entry is a registered PyTorch op,
+``torch.ops.surfacenet_tpu_torch.conv3d`` (``(Tensor x, Tensor w, Tensor
+b, int dil, bool relu) -> Tensor``), so that ``torch.export`` can trace a
+forward that calls it: its CUDA implementation launches the kernel, its
+CPU implementation is the plain version, and its fake implementation
+gives the output's shape without touching data.  An exported program
+names the op; a process that loads one imports this module first, which
+registers it.  ``conv3d`` checks its arguments and calls the op, so it
+runs the plain version for tensors on the CPU and the kernel for tensors
+on a CUDA device; there is no other route.  A failed build or launch
+raises.  ``conv3d.launches`` counts kernel launches, and
+``conv3d.route_launches`` the launches of each route, by
+``conv3d_route``'s name.
 """
 
 from __future__ import annotations
@@ -93,19 +102,8 @@ def _check_kernel(x, w):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dil: int = 1,
-           relu: bool = True) -> torch.Tensor:
-    """SAME 3^3 conv (dilation ``dil``) + bias [+ ReLU]: (B, R, R, R, Cout) bf16.
-
-    x (B, R, R, R, Cin) bf16; w (27 * Cin, Cout) bf16, tap-major rows
-    (``ops.conv3d.pack_conv_weight``); b (Cout,) float32; all contiguous.
-    The kernel also needs Cout a multiple of 8 and 16-byte aligned x, w.
-    """
-    _check(x, w, b, dil)
-    if x.device.type == "cpu":
-        return conv3d_plain(x, w, b, dil, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3d: unsupported device {x.device}")
+def _launch(x, w, b, dil, relu):
+    """The kernel on CUDA tensors that ``_check`` accepted."""
     _check_kernel(x, w)
     B, R, cin, cout = x.shape[0], x.shape[1], x.shape[4], w.shape[1]
     out = torch.empty((B, R, R, R, cout), dtype=torch.bfloat16,
@@ -125,6 +123,53 @@ def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dil: int = 1,
     conv3d.launches += 1
     conv3d.route_launches[route] += 1
     return out
+
+
+# The op is defined with ``torch.library.Library`` rather than
+# ``torch.library.custom_op``: a custom_op wraps each implementation in a
+# guard whose first call imports ``torch._dynamo``, seconds of host time
+# that the first fused forward of every process would pay.
+_LIB = torch.library.Library("surfacenet_tpu_torch", "DEF")
+_LIB.define("conv3d(Tensor x, Tensor w, Tensor b, int dil, bool relu) "
+            "-> Tensor")
+
+
+def _conv3d_cuda(x, w, b, dil, relu):
+    _check(x, w, b, dil)
+    return _launch(x, w, b, dil, relu)
+
+
+def _conv3d_cpu(x, w, b, dil, relu):
+    _check(x, w, b, dil)
+    return conv3d_plain(x, w, b, dil, relu)
+
+
+def _conv3d_fake(x, w, b, dil, relu):
+    _check(x, w, b, dil)
+    R = x.shape[1]
+    return x.new_empty((x.shape[0], R, R, R, w.shape[1]),
+                       dtype=torch.bfloat16)
+
+
+_LIB.impl("conv3d", _conv3d_cuda, "CUDA")
+_LIB.impl("conv3d", _conv3d_cpu, "CPU")
+torch.library.register_fake("surfacenet_tpu_torch::conv3d", _conv3d_fake,
+                            lib=_LIB)
+conv3d_op = torch.ops.surfacenet_tpu_torch.conv3d.default
+
+
+def conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dil: int = 1,
+           relu: bool = True) -> torch.Tensor:
+    """SAME 3^3 conv (dilation ``dil``) + bias [+ ReLU]: (B, R, R, R, Cout) bf16.
+
+    x (B, R, R, R, Cin) bf16; w (27 * Cin, Cout) bf16, tap-major rows
+    (``ops.conv3d.pack_conv_weight``); b (Cout,) float32; all contiguous.
+    The kernel also needs Cout a multiple of 8 and 16-byte aligned x, w.
+    """
+    _check(x, w, b, dil)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3d: unsupported device {x.device}")
+    return conv3d_op(x, w, b, int(dil), bool(relu))
 
 
 conv3d.launches = 0

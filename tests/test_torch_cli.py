@@ -10,7 +10,7 @@ The reference sweeps once per scene, shared by the module.
 count, agreement >= 0.99); ``--sharded`` on one device exits with the
 reference's message unless ``--allow-unsharded`` (on 2 ranks:
 tests/test_torch_sweep_sharded.py); ``export`` round-trips
-within 1e-5, the reference's self-check bound.
+within 1e-5, the reference's self-check bound, unfused and fused.
 """
 
 import numpy as np
@@ -296,12 +296,19 @@ def test_sharded_request_on_several_cards_raises(monkeypatch):
     assert got.replace(mesh=cfg.mesh) == cfg
 
 
-def test_export_round_trip_and_fused_refusal(tmp_path):
-    """``cli export`` of a small net on the CPU: the loaded program against
-    the direct forward within 1e-5 (the reference's self-check bound)."""
-    from surfacenet_tpu_torch.config import ModelConfig
-    from surfacenet_tpu_torch.models.convert import save_npz
-    from surfacenet_tpu_torch.models.surfacenet import init_surfacenet
+def test_export_round_trip_unfused_and_fused(tmp_path):
+    """``cli export`` of a small net on the CPU, unfused and fused: the
+    loaded program against the direct forward within 1e-5 (the reference's
+    self-check bound); the fused program calls the registered conv op and
+    equals ``fused_infer_apply``."""
+    from surfacenet_tpu_torch.cli import _apply_overrides
+    from surfacenet_tpu_torch.config import Config, ModelConfig
+    from surfacenet_tpu_torch.models.convert import (
+        load_surfacenet, save_npz,
+    )
+    from surfacenet_tpu_torch.models.surfacenet import (
+        fused_infer_apply, fused_params, init_surfacenet,
+    )
 
     ckpt = str(tmp_path / "tiny.npz")
     save_npz(init_surfacenet(ModelConfig.tiny(),
@@ -318,9 +325,25 @@ def test_export_round_trip_and_fused_refusal(tmp_path):
     prog = torch.export.load(out)
     x = torch.rand((2, 16, 16, 16, 6)) - 0.5
     assert prog.module()(x).shape == (2, 16, 16, 16)
-    with pytest.raises(NotImplementedError, match="fused"):
-        main(["export", "--checkpoint", ckpt, "--out", out, "--device",
-              "cpu", *tiny, "--set", "model.fused_inference=true"])
+
+    fused = str(tmp_path / "fused.pt2")
+    r = main(["export", "--checkpoint", ckpt, "--out", fused, "--batch",
+              "2", "--device", "cpu", "--selfcheck", *tiny,
+              "--set", "model.fused_inference=true"])
+    assert r["selfcheck_err"] <= 1e-5 and r["bytes"] > 10000
+    prog = torch.export.load(fused)
+    ops = [str(n.target) for n in prog.graph.nodes
+           if n.op == "call_function"]
+    # 4 blocks of one conv each
+    assert ops.count("surfacenet_tpu_torch.conv3d.default") == 4
+    # the command's model config: the default Config()'s with tiny widths
+    cfg = _apply_overrides(Config(), tiny[1::2] + [
+        "model.fused_inference=true"]).model
+    params = fused_params(load_surfacenet(ckpt, cfg).state_dict(), cfg,
+                          "cpu")
+    with torch.inference_mode():
+        got = prog.module()(x)
+        assert torch.equal(got, fused_infer_apply(cfg, params, x))
 
 
 def test_entry_points_refuse_missing_cuda(scan_dir, tmp_path, monkeypatch):

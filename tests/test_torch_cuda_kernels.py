@@ -277,6 +277,63 @@ def test_paper_width_fused_forward_takes_no_scalar_route(cuda):
     assert (got - ref).abs().max().item() <= 1e-2
 
 
+@pytest.mark.parametrize("cin,cout,dil,R", [
+    # the fast64 forward's seven layers (two share a shape), 64^3 cubes
+    (6, 32, 1, 64), (32, 128, 1, 32), (128, 128, 1, 32), (128, 128, 1, 16),
+    (128, 256, 2, 16), (256, 256, 2, 16),
+])
+def test_registered_conv_op_is_bitwise_the_kernel(cuda, cin, cout, dil, R):
+    """``torch.ops.surfacenet_tpu_torch.conv3d`` on CUDA tensors is the
+    kernel's direct launch, bit for bit, one launch a call."""
+    from surfacenet_tpu_torch.ops.cuda.conv3d import _launch
+
+    x, w, b = conv_inputs(cuda, 2, R, cin, cout, cin + cout)
+    before = conv3d.launches
+    got = torch.ops.surfacenet_tpu_torch.conv3d(x, w, b, dil, True)
+    direct = _launch(x, w, b, dil, True)
+    torch.cuda.synchronize()
+    assert conv3d.launches == before + 2
+    assert torch.equal(got, direct)
+
+
+@pytest.mark.parametrize("cin", [6, 8])
+def test_registered_conv_op_passes_opcheck_on_cuda(cuda, cin):
+    from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d_op
+
+    x, w, b = conv_inputs(cuda, 2, 8, cin, 16, 3)
+    torch.library.opcheck(conv3d_op, (x, w, b, 1, True))
+
+
+def test_fused_export_on_the_card_matches_the_predictor(cuda, tmp_path):
+    """``cli export`` of a fused forward (tiny widths, padded to 16) on the
+    card: the loaded program launches the conv kernel and is within 1e-5
+    of the direct fused predictor (the self-check's bound)."""
+    from surfacenet_tpu_torch.cli import _apply_overrides, main
+    from surfacenet_tpu_torch.models.convert import load_surfacenet, save_npz
+
+    ckpt, out = str(tmp_path / "tiny.npz"), str(tmp_path / "fused.pt2")
+    save_npz(init_surfacenet(ModelConfig.tiny(), torch.Generator()
+                             .manual_seed(0)).state_dict(), ckpt)
+    tiny = ["--set", "voxel.cube_size=16",
+            "--set", "model.block_channels=[8,12,16,16]",
+            "--set", "model.convs_per_block=[1,1,1,1]",
+            "--set", "model.side_channels=4",
+            "--set", "model.fused_inference=true"]
+    r = main(["export", "--checkpoint", ckpt, "--out", out, "--batch", "2",
+              "--selfcheck", *tiny])
+    assert r["selfcheck_err"] <= 1e-5
+    cfg = _apply_overrides(Config(), tiny[1::2]).model
+    predictor = make_predictor(load_surfacenet(ckpt, cfg), cfg, cuda)
+    x = torch.rand((2, 16, 16, 16, 6), device=cuda) - 0.5
+    prog = torch.export.load(out).module()
+    before = conv3d.launches
+    with torch.inference_mode():
+        got = prog(x)
+    torch.cuda.synchronize()
+    assert conv3d.launches == before + 4
+    assert (got - predictor(x)).abs().max().item() <= 1e-5
+
+
 @pytest.mark.parametrize("window", [0, 2])
 def test_affine_pool_kernel_matches_plain_and_sums_to_votes(cuda, scene,
                                                             window):

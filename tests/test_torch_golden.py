@@ -1,7 +1,9 @@
 """The port's first end-to-end quality number: trained weights on the CPU.
 
 ``weights/golden_sphere_fast64_30k`` is read by the JAX package's loader
-and converted at test time; both packages' ``run_sweep`` then sweep the
+for the reference, and the port loads the shipped conversion
+``weights_torch/golden_sphere_fast64_30k.npz`` (tests/test_torch_weights.py
+holds it bitwise to a fresh one); both packages' ``run_sweep`` then sweep the
 selftest-scale golden sphere (8 views of 120x160, 16^3 cubes of 2 mm,
 3 pairs, exact pooling) in float32 with that trained SurfaceNet as the
 predictor.  The merged voxel sets agree on >= 0.99 of their union, and
@@ -23,6 +25,7 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "weights", "golden_sphere_fast64_30k")
+SHIPPED = os.path.join(ROOT, "weights_torch", "golden_sphere_fast64_30k.npz")
 
 
 @pytest.fixture(scope="module")
@@ -32,10 +35,8 @@ def runs():
     from surfacenet_tpu.train.train_surface import load_pretrained
     from surfacenet_tpu.utils.metrics import accuracy_completeness as j_ac
     from surfacenet_tpu_torch.cli import selftest_setup
-    from surfacenet_tpu_torch.models.convert import params_from_jax
-    from surfacenet_tpu_torch.models.surfacenet import (
-        SurfaceNet, make_predictor,
-    )
+    from surfacenet_tpu_torch.models.convert import load_surfacenet
+    from surfacenet_tpu_torch.models.surfacenet import make_predictor
     from surfacenet_tpu_torch.pipeline.sweep import run_sweep
     from surfacenet_tpu_torch.utils.metrics import accuracy_completeness
     from surfacenet_tpu.config import Config as JConfig
@@ -50,8 +51,7 @@ def runs():
                                                        cube_size=8))
     model, variables = load_pretrained(WEIGHTS, init_cfg)
     variables = jax.tree_util.tree_map(np.asarray, variables)
-    net = SurfaceNet(cfg_t.model)
-    net.load_state_dict(params_from_jax(variables))
+    net = load_surfacenet(SHIPPED, cfg_t.model)
     gt = scene.surface_points(4000)
     args = (scene.images, scene.Ps, scene.bbox_min, scene.bbox_max)
 

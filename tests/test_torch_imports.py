@@ -3,8 +3,8 @@
 A fresh interpreter blocks ``jax``, ``flax``, ``optax``, ``orbax``, ``PIL``
 and the JAX package ``surfacenet_tpu`` (a ``sys.meta_path`` finder that
 raises on them), then imports every module of ``surfacenet_tpu_torch`` and
-the ``chip_smoke`` script (without running it).  Importing must also build
-nothing and create no build directory.
+the ``chip_smoke`` script (without running it).  Importing registers the
+conv kernel's op, and must build nothing and create no build directory.
 """
 
 import os
@@ -38,6 +38,9 @@ names = ["surfacenet_tpu_torch"] + [
 ]
 for name in names:
     importlib.import_module(name)
+import torch
+# the conv kernel's registered op, which an exported fused forward names
+assert torch.ops.surfacenet_tpu_torch.conv3d.default is not None
 smoke = importlib.import_module("chip_smoke")
 assert callable(smoke.main)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -75,7 +78,9 @@ def test_port_imports_without_jax_pil_or_reference_package():
             "surfacenet_tpu_torch.parallel.halo",
             "surfacenet_tpu_torch.parallel.sweep_sharded",
             "surfacenet_tpu_torch.utils.debug",
-            "surfacenet_tpu_torch.utils.viz"} <= names
+            "surfacenet_tpu_torch.utils.viz",
+            "surfacenet_tpu_torch.ops.cuda.conv3d",
+            "surfacenet_tpu_torch.models.surfacenet"} <= names
 
 
 def test_sources_name_no_reference_imports():
