@@ -206,7 +206,22 @@ the run with a non-zero exit code and no result line):
       "--batch", "120", "--selfcheck"])`` with the sphere's weights: fails
       above 1e-5, or unless the loaded program, called once, launched the
       conv kernel 7 times (export seconds and bytes reported);
-  20. the result line.
+  20. bench: the gather and the vote against their plain versions at
+      ``cli bench``'s first 32^3 batch (32 cubes of 0.8 mm on 8 sphere
+      views of 600x800; phase 6's gates, the vote on its ``tile`` route),
+      the host synchronisations of one warm bench step counted under
+      ``torch.cuda.set_sync_debug_mode("warn")`` (reported, not gated),
+      then ``cli.main(["bench"])`` in this process, its stdout captured:
+      its JSON line is logged beside phase 1's card name and power limit
+      with the phase's seconds and peak memory; fails unless its keys are
+      exactly ``bench.RECORD_KEYS``, every rate is finite and > 0, every
+      MFU in (0, 100], and the launches equal what the calls imply: one
+      bf16 gather and one ``tile``-route vote a step call (six step points
+      of 1 + windows x iterations calls), and one bf16 gather a training
+      step (one warm-up and the timed chunks of K steps), the calls
+      counted by wrapping ``bench.cube_batch_step`` and
+      ``train_surface.train_step``;
+  21. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  Reads the shipped weights under ``weights_torch/``.
@@ -216,7 +231,9 @@ two rank processes end before the script does.  Needs no PIL.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import multiprocessing
 import os
@@ -224,12 +241,13 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from surfacenet_tpu_torch import cli, native
+from surfacenet_tpu_torch import bench, cli, native
 from surfacenet_tpu_torch.cli import reconstruct_scan
 from surfacenet_tpu_torch.config import baseline_config
 from surfacenet_tpu_torch.data.dtu import Scan, load_scan, write_scan
@@ -438,6 +456,31 @@ def grid_sample_ms(images_g, Ps_d, views, vorig, D, s):
     return cuda_ms(lambda: F.grid_sample(
         imgs_items, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), iters=5, warmup=1)
+
+
+def gather_items(uniq, origins):
+    """The deduplicated gather's items of a batch, as ``cube_batch_step``
+    forms them: (views (Nc Ku,) int32, origins (Nc Ku, 3))."""
+    views = torch.where(uniq >= 0, uniq, uniq[:, :1].clamp(min=0))
+    return (views.reshape(-1).contiguous(),
+            origins.repeat_interleave(uniq.shape[1], dim=0).contiguous())
+
+
+def check_gather(images_g, Ps_d, views, vorig, D, s):
+    """The gather kernel against its plain version on these items: fails
+    below 0.9999 validity agreement or above 1e-3 colour difference.
+    Returns (validity agreement, max |colour diff|, valid voxels)."""
+    colors_k, valid_k = warp_gather(images_g, Ps_d, views, vorig, D=D, s=s)
+    colors_p, valid_p = build_cvc_views(images_g, Ps_d, views, vorig, D, s)
+    torch.cuda.synchronize()
+    agree = (valid_k == valid_p).float().mean().item()
+    err = (colors_k - colors_p).abs()[valid_k & valid_p].max().item()
+    n_valid = int(valid_k.sum().item())
+    log(f"warp_gather: {views.shape[0]} items of {D}^3, validity agreement "
+        f"{agree:.6f}, max |colour diff| {err:.3e}")
+    if agree < 0.9999 or err > 1e-3:
+        raise RuntimeError("warp_gather disagrees with its plain version")
+    return agree, err, n_valid
 
 
 def reset_counts():
@@ -1834,6 +1877,165 @@ def sharded_phase(dev, tmp, scene, scan_dir, npz, mask_items):
     return out, launches
 
 
+def counted(module, name, calls):
+    """Wrap ``module.name`` so that each call adds one to ``calls[name]``;
+    returns the undo."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        calls[name] += 1
+        return real(*args, **kw)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def count_syncs(fn):
+    """The synchronising CUDA operations that ``fn()`` runs, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (it does not
+    detect every kind)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+# the record's text; every other value is a rate (finite, > 0) or an MFU
+# (in (0, 100])
+BENCH_TEXT_KEYS = ("metric", "unit", "e2e_includes", "device")
+# cli bench's step points, each one time_pipelined of the batch step
+BENCH_STEP_POINTS = ("paper", "aligned", "fast", "paper_64", "fast_64",
+                     "fast64_64")
+
+
+def bench_phase(dev, smi):
+    """Phase 20: ``cli bench``'s kernels at its first 32^3 batch, the host
+    syncs of one warm step, then ``cli bench`` itself with its launches
+    counted.  Returns the phase's readings and the launches."""
+    sizes = bench.BenchSizes()
+    D = sizes.D
+    cfg = bench.bench_config(D)
+    s, f = cfg.voxel.voxel_size_mm, cfg.fusion
+    scene = bench.bench_scene(sizes)
+    images_g = gather_images(torch.as_tensor(scene.images, device=dev),
+                             torch.bfloat16)
+    Ps_d = torch.as_tensor(scene.Ps, dtype=torch.float32, device=dev)
+    inputs = bench.cube_inputs(scene, cfg, sizes.n_cubes, 1, D, dev)
+    origins = torch.as_tensor(inputs["origins"], device=dev)
+    uniq = torch.as_tensor(inputs["uniq_views"], device=dev)
+    views, vorig = gather_items(uniq, origins)
+    agree, err, n_valid = check_gather(images_g, Ps_d, views, vorig, D, s)
+    out = {"cubes": sizes.n_cubes, "D": D, "gather_items": views.shape[0],
+           "gather_validity_agreement": agree, "gather_max_abs_err": err,
+           "gather_valid_share": n_valid / (views.shape[0] * D**3)}
+
+    predictor = bench.random_predictor(sizes.models["paper"], dev)
+    _, fused, _ = cube_batch_step(
+        images_g, Ps_d, origins, torch.as_tensor(inputs["pair_w"], device=dev),
+        None, uniq, torch.as_tensor(inputs["slot_idx"], device=dev), D=D,
+        s=s, n_pairs=f.n_view_pairs, tau=f.tau, gamma=f.gamma,
+        adaptive=False, center_colors=True, predict=predictor,
+        n_pool_views=f.n_pool_views, ray_pool_mode=f.ray_pool_mode,
+        pool_window=bench.POOL_WINDOW)
+    pool_views, view_mask = pool_views_for(uniq, f.n_pool_views,
+                                           f.n_view_pairs)
+    axis, slopes = vote_params(origins, s, Ps_d[pool_views.long()],
+                               view_mask, D)
+    fused = fused.contiguous()
+    w = bench.POOL_WINDOW
+    votes_k, taken = routes_taken(
+        affine_vote, lambda: affine_vote(fused, axis, slopes, w))
+    votes_p = ray_vote_affine_plain(fused, axis, slopes, w)
+    torch.cuda.synchronize()
+    out["vote_bitwise_equal"] = torch.equal(votes_k, votes_p)
+    out["vote_max_abs_err"] = (votes_k - votes_p).abs().max().item()
+    out["vote_route"] = taken
+    out["fused_above_tau"] = (fused > f.tau).float().mean().item()
+    del fused, votes_k, votes_p
+    log(f"bench {D}^3 batch against the plain versions {json.dumps(out)}")
+    check_route("affine_vote", w, taken, affine_route(D, axis.shape[1], w))
+    if not out["vote_bitwise_equal"]:
+        raise RuntimeError(f"affine_vote differs from its plain version at "
+                           f"the bench's {D}^3 batch")
+
+    # host synchronisations of one warm bench step (a reading: the
+    # pipelined timing assumes there are none), beside a control that
+    # must count one (``.item()``)
+    step = bench.make_step(images_g, Ps_d, inputs, cfg, D, predictor, dev)
+    step()
+    torch.cuda.synchronize()
+    out["host_syncs_per_step"] = count_syncs(step)
+    out["host_syncs_control_item"] = count_syncs(
+        lambda: torch.ones((), device=dev).item())
+    out["occupied_voxels"] = int(step()[1].sum().item())
+    log(f"host syncs in one warm bench step: {out['host_syncs_per_step']} "
+        f"(control .item(): {out['host_syncs_control_item']}); occupied "
+        f"voxels of its {sizes.n_cubes} cubes {out['occupied_voxels']}")
+    del predictor, step, images_g
+    torch.cuda.empty_cache()
+
+    calls = {"cube_batch_step": 0, "train_step": 0}
+    undo = [counted(bench, "cube_batch_step", calls),
+            counted(train_surface, "train_step", calls)]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rec = cli.main(["bench"])
+        torch.cuda.synchronize()
+    finally:
+        for u in undo:
+            u()
+    out["bench_s"] = time.perf_counter() - t0
+    out["bench_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    launches = launch_counts()
+    line = buf.getvalue().strip().splitlines()[-1]
+    log(f"cli bench on {smi}: {line}")
+    log(f"cli bench {out['bench_s']:.1f} s, peak {out['bench_peak_mem_gb']:.2f}"
+        f" GB, calls {json.dumps(calls)}, launches {json.dumps(launches)}")
+    out["record"] = json.loads(line)
+    out["calls"] = calls
+
+    if tuple(out["record"]) != bench.RECORD_KEYS or out["record"] != rec:
+        raise RuntimeError(f"cli bench's line (keys {list(out['record'])}) "
+                           f"is not its record with keys "
+                           f"{list(bench.RECORD_KEYS)}")
+    for k, v in rec.items():
+        if k in BENCH_TEXT_KEYS:
+            continue
+        ok = (isinstance(v, (int, float)) and np.isfinite(v) and v > 0
+              and ("mfu_pct" not in k or v <= 100.0))
+        if not ok:
+            raise RuntimeError(f"cli bench: {k} = {v!r} is not a finite "
+                               f"rate > 0 (an MFU at most 100)")
+    step_calls = len(BENCH_STEP_POINTS) * (1 + sizes.n_windows
+                                           * sizes.n_iters)
+    train_calls = (1 + sizes.train_chunks) * sizes.train_K
+    if calls != {"cube_batch_step": step_calls, "train_step": train_calls}:
+        raise RuntimeError(f"cli bench made {calls} calls, expected "
+                           f"{step_calls} steps and {train_calls} training "
+                           f"steps")
+    want = calls["cube_batch_step"] + calls["train_step"]
+    if (launches["warp_gather_bf16"] != want
+            or launches["warp_gather"] != want
+            or launches["affine_vote"] != calls["cube_batch_step"]
+            or launches["affine_vote_routes"]["tile"]
+            != launches["affine_vote"]):
+        raise RuntimeError(f"cli bench's launches {launches} are not one "
+                           f"bf16 gather a step and a training step ({want}) "
+                           f"and one tile-route vote a step "
+                           f"({calls['cube_batch_step']})")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1858,7 +2060,8 @@ def run(pool) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    log(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    log(smi_line)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
@@ -1979,24 +2182,9 @@ def run(pool) -> int:
     images_t = torch.as_tensor(scene.images, device=dev)
     images_g = gather_images(images_t, torch.bfloat16)  # the sweep's RGBx
     Ps_d = torch.as_tensor(stats.Ps, dtype=torch.float32, device=dev)
-    Ku = uniq.shape[1]
-    views = torch.where(uniq >= 0, uniq, uniq[:, :1].clamp(min=0))
-    views = views.reshape(-1).contiguous()
-    vorig = origins.repeat_interleave(Ku, dim=0).contiguous()
+    views, vorig = gather_items(uniq, origins)
     n_items = views.shape[0]
-
-    colors_k, valid_k = warp_gather(images_g, Ps_d, views, vorig, D=D, s=s)
-    colors_p, valid_p = build_cvc_views(images_g, Ps_d, views, vorig, D, s)
-    torch.cuda.synchronize()
-    agree = (valid_k == valid_p).float().mean().item()
-    both = valid_k & valid_p
-    g_err = (colors_k - colors_p).abs()[both].max().item()
-    n_valid = int(valid_k.sum().item())
-    del colors_p, valid_p
-    log(f"warp_gather: {n_items} items of {D}^3, validity agreement "
-        f"{agree:.6f}, max |colour diff| {g_err:.3e}")
-    if agree < 0.9999 or g_err > 1e-3:
-        raise RuntimeError("warp_gather disagrees with its plain version")
+    agree, g_err, n_valid = check_gather(images_g, Ps_d, views, vorig, D, s)
     g_ms = cuda_ms(lambda: warp_gather(images_g, Ps_d, views, vorig,
                                        D=D, s=s), iters=20)
     g_plain = cuda_ms(lambda: build_cvc_views(images_g, Ps_d, views, vorig,
@@ -2004,7 +2192,6 @@ def run(pool) -> int:
     g_lib = grid_sample_ms(images_g, Ps_d, views, vorig, D, s)
     g_bound, g_by, n_pixels = gather_bound(images_g, Ps_d, views, vorig, D,
                                            s, n_valid)
-    del colors_k, valid_k
 
     window = resolve_pool_window(cfg)
     step_kw = dict(
@@ -2517,6 +2704,14 @@ def run(pool) -> int:
     log(f"trained phase {time.perf_counter() - t0:.1f} s")
     sweeps = ("sphere", "tori", "sphere_fused")
 
+    phase(20, "bench: the gather and the vote at cli bench's 32^3 batch, "
+          "the host syncs of one warm step, then cli bench with its "
+          "launches counted")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_out, bench_launches = bench_phase(dev, smi_line)
+    log(f"bench phase {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -2538,6 +2733,8 @@ def run(pool) -> int:
             "trained_path_launches": {
                 k: trained_launches[k]["warp_gather"] for k in sweeps},
             "trained": trained,
+            "bench_path_launches": bench_launches["warp_gather_bf16"],
+            "bench": bench_out,
         },
         {
             "name": "affine_vote", "route": "cuda",
@@ -2559,6 +2756,8 @@ def run(pool) -> int:
                 k: v["affine_vote"] for k, v in sharded_launches.items()},
             "trained_path_launches": {
                 k: trained_launches[k]["affine_vote"] for k in sweeps},
+            "bench_path_launches": bench_launches["affine_vote"],
+            "bench_route_launches": bench_launches["affine_vote_routes"],
         },
         {
             "name": "conv3d", "route": "cuda",
@@ -2612,7 +2811,7 @@ def run(pool) -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(20, "result")
+    phase(21, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

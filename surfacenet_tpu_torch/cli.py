@@ -21,6 +21,7 @@
     python -m surfacenet_tpu_torch.cli eval --pred out.ply --gt gt.ply \
         [--max-dist 20] [--protocol clamp|dtu] [--obs-mask m.npz] \
         [--plane a,b,c,d]
+    python -m surfacenet_tpu_torch.cli bench
 
 ``--checkpoint`` takes the ``.npz`` written by ``models/convert.py`` or
 by ``train`` (``step_N/model.npz``); without it the photoconsistency
@@ -57,9 +58,13 @@ synthetic sphere (8 views of 240x320) or a scan with its ground truth and
 writes ``pairnet_N.npz``.  ``selftest`` sweeps a
 synthetic golden scene with the photoconsistency predictor and scores it
 against the analytic surface; ``eval`` scores a predicted ``.ply`` against
-a ground-truth ``.ply``.  ``--device`` defaults to ``cuda`` and fails when
-no card is present; ``--device cpu`` runs the plain PyTorch versions of
-the kernels on the CPU.  ``main`` returns what the command computed.
+a ground-truth ``.ply``.  ``bench`` times the sweep's batch step, the
+forward and training at the root ``bench.py``'s sizes and prints its
+record as one JSON line (this package's ``bench.py``; with ``--device
+cpu`` impractically slow at those sizes).  ``--device`` defaults to
+``cuda`` and fails when no card is present; ``--device cpu`` runs the
+plain PyTorch versions of the kernels on the CPU.  ``main`` returns what
+the command computed.
 """
 
 from __future__ import annotations
@@ -701,6 +706,13 @@ def cmd_train_pairnet(args):
     return model, losses
 
 
+def cmd_bench(args):
+    """Run the benchmark (``bench.py``) and print its record; returns it."""
+    from surfacenet_tpu_torch import bench
+
+    return bench.main(args.device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="surfacenet_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -859,6 +871,10 @@ def main(argv=None):
                          "completeness; dtu protocol only")
     pe.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     pe.set_defaults(fn=cmd_eval)
+
+    pb = sub.add_parser("bench", help="throughput benchmark (one JSON line)")
+    pb.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    pb.set_defaults(fn=cmd_bench)
     args = ap.parse_args(argv)
     return args.fn(args)
 

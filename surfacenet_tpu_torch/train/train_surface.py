@@ -202,8 +202,8 @@ def train_step(
             g.copy_(total)
         loss = all_reduce_(loss.reshape(1), group)[0]
     lr = learning_rate(state.train_cfg, state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
+    for param_group in state.optimizer.param_groups:
+        param_group["lr"] = lr
     state.optimizer.step()
     state.step += 1
     return loss
