@@ -33,15 +33,17 @@ the run with a non-zero exit code and no result line):
      ``model.fused_inference`` on, a fast64 SurfaceNet with seeded random
      weights and seeded non-identity BatchNorm statistics; fails unless the
      conv kernel ran 7 times a forward (a positive multiple of 7, at least
-     7 per batch) and the gather and the vote ran too;
+     7 per batch) on the ``wgmma`` and ``halo_mma`` routes alone, and the
+     gather and the vote ran too;
   8. the conv kernel against its plain version at each of the forward's
      seven layer shapes (120 items), with its route (``conv3d_route``:
      ``wgmma`` for Cin a multiple of 8, ``halo_mma`` for the first layer's
-     Cin 6), its time and TFLOP/s, its bound, its share of the bound and
-     cuDNN's time for the same layer (``F.conv3d``, bf16, channels-last,
-     bias and ReLU: timed only, never called by the port) and its ratio to
-     it, and each route's sum beside cuDNN's sum for the same layers;
-     then the whole fused
+     Cin 6; every call's launch must be on it, and none on
+     ``wgmma_padded``), its time and TFLOP/s, its bound, its share of the
+     bound and cuDNN's time for the same layer (``F.conv3d``, bf16,
+     channels-last, bias and ReLU: timed only, never called by the port)
+     and its ratio to it, and each route's sum beside cuDNN's sum for the
+     same layers; then the whole fused
      forward, kernel route against plain route and against the unfused
      cuDNN forward with the same weights, and the warm fused batch step's
      breakdown;
@@ -77,10 +79,19 @@ the run with a non-zero exit code and no result line):
       of seeded random weights and seeded non-identity BatchNorm
       statistics; ``fused_params`` pads block 3's 300 channels to 304;
       fails unless the conv kernel ran 12 times a forward (a positive
-      multiple of 12, at least 12 per batch) with no launch on the
-      ``wmma_scalar`` route; then each of the 12 convs against its plain
-      version at its padded shape (120 items) with its route, time, bound
-      and cuDNN's time at the unpadded width, the forward against its
+      multiple of 12, at least 12 per batch) on the ``wgmma`` and
+      ``halo_mma`` routes alone (no ``wgmma_padded`` launch); then each of
+      the 12 convs against its plain version at its padded shape (120
+      items) with its route, time, bound and cuDNN's time at the unpadded
+      width; then the op at the reference's own unpadded widths, where it
+      pads each call (``wgmma_padded``): block 3's 160 -> 300 and 300 ->
+      300 at its dilation and ``tiny``'s R 32 8 -> 12, 12 -> 12 and R 16
+      12 -> 16, then R 32 8 -> 5 and R 16 6 -> 32 at dil 8 (above the
+      halo route's cap), each against its plain version (one bf16 ulp on
+      >= 0.9999 of the outputs) with its time, its pad pass, its kernel on
+      the padded operands and its slice timed alone, its bound and
+      cuDNN's time, and fails unless every call launched
+      ``wgmma_padded`` and nothing else; then the forward against its
       plain route (within 1e-2) and the unfused cuDNN forward (within
       0.03) with the same weights, and the warm batch step;
   15. training at ``dtu9_full`` (fast64 widths, 64^3 cubes of 0.4 mm,
@@ -270,7 +281,9 @@ from surfacenet_tpu_torch.ops.cuda.affine_pool import (
 from surfacenet_tpu_torch.ops.cuda.affine_vote import (
     affine_route, affine_vote,
 )
-from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d, conv3d_route
+from surfacenet_tpu_torch.ops.cuda.conv3d import (
+    _kernel_fn, _run, conv3d, conv3d_route, pad_operands,
+)
 from surfacenet_tpu_torch.ops.cuda.warp_gather import (
     build_cvc_batch_cuda, warp_gather,
 )
@@ -552,8 +565,14 @@ def conv_layer(R, cin, cout, dil, items, gen, cin_p=None, cout_p=None):
     the port) at the unpadded width, with the bound of the unpadded layer.
     ``cin_p``/``cout_p`` are the padded widths the kernel runs at
     (``fused_params``): the extra channels of input, weights and bias are
-    zero."""
+    zero.  Fails unless each call launched the route ``conv3d_route``
+    names (``calls`` of them).  On ``wgmma_padded`` the route's three parts
+    are timed alone too: the pad (``pad_ms``), the ``wgmma`` kernel on the
+    padded operands (``kernel_on_padded_ms``, launched without the op, so
+    uncounted) and the slice back to Cout (``slice_ms``)."""
     cin_p, cout_p = cin_p or cin, cout_p or cout
+    route = conv3d_route(cin_p, cout_p, dil)
+    before = dict(conv3d.route_launches)
     dev = gen.device
     xl = torch.randn((items, R, R, R, cin_p), device=dev, generator=gen)
     xl[..., cin:] = 0  # a padded channel of the previous layer is 0
@@ -569,7 +588,26 @@ def conv_layer(R, cin, cout, dil, items, gen, cin_p=None, cout_p=None):
     torch.cuda.synchronize()
     share, err = within_one_bf16_ulp(got, ref)
     del got, ref
-    k_ms = cuda_ms(lambda: conv3d(xl, wl, bl, dil=dil), iters=3, warmup=1)
+    iters, warmup = 3, 1
+    k_ms = cuda_ms(lambda: conv3d(xl, wl, bl, dil=dil), iters=iters,
+                   warmup=warmup)
+    calls = 1 + iters + warmup  # the check above and the timed calls
+    ran = {r: n - before[r] for r, n in conv3d.route_launches.items()}
+    if ran != {r: calls * (r == route) for r in ran}:
+        raise RuntimeError(f"conv3d at R {R}, {cin_p}->{cout_p}, dil {dil} "
+                           f"ran {ran}, not {calls} calls on {route}")
+    pad = {}
+    if route == "wgmma_padded":
+        pad["pad_ms"] = cuda_ms(lambda: pad_operands(xl, wl, bl), iters=3,
+                                warmup=1)
+        padded = pad_operands(xl, wl, bl)
+        pad["kernel_on_padded_ms"] = cuda_ms(
+            lambda: _run(_kernel_fn(), *padded, dil, True, "wgmma"),
+            iters=3, warmup=1)
+        out8 = _run(_kernel_fn(), *padded, dil, True, "wgmma")
+        pad["slice_ms"] = (0.0 if cout_p % 8 == 0 else cuda_ms(
+            lambda: out8[..., :cout_p].contiguous(), iters=3, warmup=1))
+        del padded, out8
     p_ms = cuda_ms(lambda: conv3d_plain(xl, wl, bl, dil), iters=1, warmup=0)
     xc = xl[..., :cin].permute(0, 4, 1, 2, 3).contiguous(
         memory_format=torch.channels_last_3d)
@@ -586,7 +624,8 @@ def conv_layer(R, cin, cout, dil, items, gen, cin_p=None, cout_p=None):
     del xl, wl, bl, xc, wc, bc
     torch.cuda.empty_cache()
     layer = {"R": R, "cin": cin, "cout": cout, "cin_padded": cin_p,
-             "cout_padded": cout_p, "dil": dil, "route": conv3d_route(cin_p),
+             "cout_padded": cout_p, "dil": dil, "route": route,
+             "calls": calls, **pad,
              "ms": k_ms, "tflops": flops / (k_ms * 1e-3) / 1e12,
              "plain_ms": p_ms, "library_ms": lib_ms,
              "bound_ms": b_ms, "bound_by": b_by,
@@ -1532,7 +1571,7 @@ def trained_phase(dev, tmp, scenes):
     routes = launches["sphere_fused"]["conv3d_routes"]
     n_layers = len(conv_layers(cfg.model, cfg.voxel.cube_size))
     if (launches["sphere_fused"]["conv3d"] < n_layers * st_f.n_batches
-            or routes["wmma_scalar"] or not routes["wgmma"]
+            or routes["wgmma_padded"] or not routes["wgmma"]
             or not routes["halo_mma"]):
         raise RuntimeError(f"the fused sweep's convs ran {routes}, not on "
                            f"the wgmma and halo_mma routes alone")
@@ -2296,11 +2335,14 @@ def run(pool) -> int:
     log(f"kernel launches in the fused main path: {json.dumps(launches_f)}, "
         f"conv by route {json.dumps(routes_f)}")
     if (launches_f["conv3d"] <= 0 or launches_f["conv3d"] % n_layers
-            or launches_f["conv3d"] < n_layers * stats_f.n_batches):
+            or launches_f["conv3d"] < n_layers * stats_f.n_batches
+            or routes_f["wgmma_padded"] or not routes_f["wgmma"]
+            or not routes_f["halo_mma"]):
         raise RuntimeError(
             f"fused main path launched the conv kernel "
-            f"{launches_f['conv3d']} times for {stats_f.n_batches} batches "
-            f"of {n_layers} convs")
+            f"{launches_f['conv3d']} times ({routes_f}) for "
+            f"{stats_f.n_batches} batches of {n_layers} convs, or not on "
+            f"the wgmma and halo_mma routes alone")
     for name in ("warp_gather", "affine_vote"):
         if launches_f[name] <= 0:
             raise RuntimeError(f"fused main path did not launch {name}")
@@ -2313,6 +2355,9 @@ def run(pool) -> int:
     for R, cin, cout, dil in conv_layers(cfg.model, D):
         layers.append(conv_layer(R, cin, cout, dil, net_items, gen_d))
         log(f"conv3d layer {json.dumps(layers[-1])}")
+        if layers[-1]["route"] == "wgmma_padded":
+            raise RuntimeError(f"a fast64 layer took the padded route: "
+                               f"{layers[-1]}")
     for route in dict.fromkeys(layer["route"] for layer in layers):
         on = [layer for layer in layers if layer["route"] == route]
         k_sum = sum(layer["ms"] for layer in on)
@@ -2584,12 +2629,13 @@ def run(pool) -> int:
         f"{json.dumps(launches_p)}, conv by route {json.dumps(routes_p)}")
     if (launches_p["conv3d"] <= 0 or launches_p["conv3d"] % len(layers_p)
             or launches_p["conv3d"] < len(layers_p) * stats_p.n_batches
-            or routes_p["wmma_scalar"]):
+            or routes_p["wgmma_padded"] or not routes_p["wgmma"]
+            or not routes_p["halo_mma"]):
         raise RuntimeError(
             f"the paper-width path launched the conv kernel "
             f"{launches_p['conv3d']} times ({routes_p}) for "
-            f"{stats_p.n_batches} batches of {len(layers_p)} convs, or on "
-            f"the scalar route")
+            f"{stats_p.n_batches} batches of {len(layers_p)} convs, or not "
+            f"on the wgmma and halo_mma routes alone")
     for name in ("warp_gather", "affine_vote"):
         if launches_p[name] <= 0:
             raise RuntimeError(f"the paper-width path did not launch {name}")
@@ -2603,15 +2649,41 @@ def run(pool) -> int:
         layers_pw.append(conv_layer(R, cin, cout, dil, net_items, gen_d,
                                     w_p.shape[0] // 27, w_p.shape[1]))
         log(f"conv3d paper-width layer {json.dumps(layers_pw[-1])}")
-        if layers_pw[-1]["route"] == "wmma_scalar":
-            raise RuntimeError(f"a paper-width conv took the scalar route: "
-                               f"{layers_pw[-1]}")
+        if layers_pw[-1]["route"] == "wgmma_padded":
+            raise RuntimeError(f"a padded paper-width conv took the padded "
+                               f"route: {layers_pw[-1]}")
     conv_ms_p = sum(layer["ms"] for layer in layers_pw)
     conv_lib_p = sum(layer["library_ms"] for layer in layers_pw)
     conv_bound_p = sum(layer["bound_ms"] for layer in layers_pw)
     log(f"conv3d paper width, {len(layers_pw)} layers: kernel {conv_ms_p:.4f} "
         f"ms, cuDNN {conv_lib_p:.4f} ms ({conv_ms_p / conv_lib_p:.3f}x), "
         f"bound {conv_bound_p:.4f} ms ({conv_bound_p / conv_ms_p:.1%} of it)")
+
+    # the op at the reference's own, unpadded widths, where it pads each
+    # call (wgmma_padded): the paper width's block 3 and tiny's narrow
+    # layers (ModelConfig.tiny, block_channels (8, 12, 16, 16)); then a
+    # Cout of 5 and the first layer's Cin 6 at dil 8, above the halo
+    # route's cap
+    dil_3 = cfg_p.model.dilations[3]
+    reset_counts()
+    layers_ref = []
+    for R, cin, cout, dil in ((16, 160, 300, dil_3), (16, 300, 300, dil_3),
+                              (32, 8, 12, 1), (32, 12, 12, 1),
+                              (16, 12, 16, 1), (32, 8, 5, 1),
+                              (16, 6, 32, 8)):
+        layers_ref.append(conv_layer(R, cin, cout, dil, net_items, gen_d))
+        log(f"conv3d reference-width layer {json.dumps(layers_ref[-1])}")
+    routes_ref = dict(conv3d.route_launches)
+    n_calls = sum(layer["calls"] for layer in layers_ref)
+    log(f"conv3d reference widths, {len(layers_ref)} layers: launches by "
+        f"route {json.dumps(routes_ref)}; kernel "
+        f"{sum(layer['ms'] for layer in layers_ref):.4f} ms (pad and slice "
+        f"{sum(layer['pad_ms'] + layer['slice_ms'] for layer in layers_ref):.4f}"
+        f"), cuDNN {sum(layer['library_ms'] for layer in layers_ref):.4f} ms,"
+        f" bound {sum(layer['bound_ms'] for layer in layers_ref):.4f} ms")
+    if routes_ref != {"wgmma": 0, "halo_mma": 0, "wgmma_padded": n_calls}:
+        raise RuntimeError(f"the reference widths launched {routes_ref}, "
+                           f"not {n_calls} calls on wgmma_padded")
 
     x = torch.randn((net_items, D, D, D, 6), device=dev,
                     generator=gen_d).to(torch.bfloat16)
@@ -2779,6 +2851,8 @@ def run(pool) -> int:
             "library_ms": breakdown_f["conv_library_ms"],
             "items": net_items, "route_launches": routes_f, "layers": layers,
             "paper_width": paper,
+            "reference_widths": {"route_launches": routes_ref,
+                                 "layers": layers_ref},
         },
         {
             "name": "affine_pool", "route": "cuda",

@@ -14,9 +14,11 @@ CUDA events, the shipped source, the variants of the layer's route and
 cuDNN's bf16 ``F.conv3d`` in turns (forwards, then backwards), and each
 route's layers are summed; at the first layer, diagnostics that each leave
 out one part of the halo route's work are timed too (never checked: their
-output is wrong).  Last, the scalar route (Cin above 8 and not a
-multiple of 8) is timed at the paper width's widest layer beside cuDNN and
-the plain version.  Prints the card's name and power limit, ``ptxas``
+output is wrong).  Last, the ``wgmma_padded`` route at the paper width's
+widest layer at the reference's own width (300 -> 300), through
+``chip_smoke.conv_layer``: checked against the plain version, timed
+beside it and cuDNN, with its pad pass, its kernel on the padded operands
+and its slice timed apart.  Prints the card's name and power limit, ``ptxas``
 register and spill counts, one JSON line per layer (with its bound) and one
 line of sums.  Needs an NVIDIA Hopper card; PyTorch only.
 """
@@ -35,7 +37,7 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    PEAK_BF16_S, bound, cuda_ms, within_one_bf16_ulp,
+    PEAK_BF16_S, bound, conv_layer, cuda_ms, within_one_bf16_ulp,
 )
 from surfacenet_tpu_torch.ops.conv3d import conv3d_plain  # noqa: E402
 from surfacenet_tpu_torch.ops.cuda import _build  # noqa: E402
@@ -46,9 +48,9 @@ LAYERS = [(64, 6, 32, 1), (32, 32, 128, 1), (32, 128, 128, 1),
           (16, 128, 128, 1), (16, 128, 128, 1), (16, 128, 256, 2),
           (16, 256, 256, 2)]
 # the paper width's (block_channels (32, 80, 160, 300)) widest layer, 300
-# -> 300 at dil 2, on the scalar route; its Cout is rounded up to 304
-# because every route takes Cout a multiple of 8 only
-SCALAR_LAYERS = [(16, 300, 304, 2)]
+# -> 300 at dil 2, at the reference's own width: the op pads Cin and Cout
+# to 304 (wgmma_padded)
+PADDED_LAYERS = [(16, 300, 300, 2)]
 CHECKS = [(6, 32, 1, 8, 2), (32, 8, 1, 8, 3), (16, 72, 2, 8, 3),
           (128, 128, 1, 16, 4), (128, 256, 2, 8, 3), (256, 256, 2, 8, 3),
           (16, 16, 1, 5, 2), (3, 16, 2, 9, 2), (6, 32, 2, 8, 3),
@@ -449,7 +451,7 @@ def run(fn, x, w, b, dil):
     B, R, cin, cout = x.shape[0], x.shape[1], x.shape[4], w.shape[1]
     out = torch.empty((B, R, R, R, cout), dtype=torch.bfloat16,
                       device=x.device)
-    wt = w.t().contiguous() if conv3d_route(cin) == "wgmma" else None
+    wt = w.t().contiguous() if cin % 8 == 0 else None
     err = fn(x.data_ptr(), w.data_ptr(), wt.data_ptr() if wt is not None
              else None, b.data_ptr(), out.data_ptr(), B, R, cin, cout, dil, 1,
              torch.cuda.current_stream().cuda_stream)
@@ -468,7 +470,7 @@ def inputs(dev, B, R, cin, cout, seed):
     return x, w, b
 
 
-def time_layer(fns, dev, items, R, cin, cout, dil, plain=False):
+def time_layer(fns, dev, items, R, cin, cout, dil):
     """Times ``fns`` and cuDNN at one layer shape, in turns; prints and
     returns the mean milliseconds by name."""
     x, w, b = inputs(dev, items, R, cin, cout, 7)
@@ -489,13 +491,10 @@ def time_layer(fns, dev, items, R, cin, cout, dil, plain=False):
                + items * R**3 * cout * 2)
     b_ms, b_by = bound(n_bytes, flops, PEAK_BF16_S)
     record = {"R": R, "cin": cin, "cout": cout, "dil": dil,
-              "route": conv3d_route(cin), "ms": ms,
+              "route": conv3d_route(cin, cout, dil), "ms": ms,
               "tflops": {n: flops / (t * 1e-3) / 1e12 for n, t in ms.items()},
               "bound_ms": b_ms, "bound_by": b_by,
               "bound_share": {n: b_ms / t for n, t in ms.items()}}
-    if plain:
-        record["plain_ms"] = cuda_ms(lambda: conv3d_plain(x, w, b, dil),
-                                     iters=1, warmup=0)
     print(json.dumps(record), flush=True)
     del x, w, b, xc, wc, bc
     torch.cuda.empty_cache()
@@ -531,7 +530,7 @@ def main() -> int:
               f"{len(CHECKS)} shapes")
         sums = {}
         for R, cin, cout, dil in LAYERS:
-            route = conv3d_route(cin)
+            route = conv3d_route(cin, cout, dil)
             on = {name: fn for name, fn in checked.items()
                   if VARIANTS[name][0] in (None, route)}
             if route == "halo_mma":
@@ -541,9 +540,10 @@ def main() -> int:
                 sums.setdefault(route, {}).setdefault(name, 0.0)
                 sums[route][name] += t
         print(json.dumps({"route_layers_ms": sums}), flush=True)
-        for R, cin, cout, dil in SCALAR_LAYERS:
-            time_layer({"shipped": fns["shipped"]}, dev, args.items, R, cin,
-                       cout, dil, plain=True)
+    gen = torch.Generator(dev).manual_seed(7)
+    for R, cin, cout, dil in PADDED_LAYERS:
+        print(json.dumps(conv_layer(R, cin, cout, dil, args.items, gen)),
+              flush=True)
     return 0
 
 

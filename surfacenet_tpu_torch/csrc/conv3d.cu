@@ -11,8 +11,11 @@
 // Layouts (the reference's): x (B, R, R, R, Cin) bf16 NDHWC; w (27*Cin,
 // Cout) bf16 with rows tap-major, tap (dz, dy, dx) in {-dil, 0, dil}^3 in C
 // order, then cin (DHWIO reshaped); bias (Cout,) f32; out (B, R, R, R,
-// Cout) bf16.  Cout is a multiple of 8.  The wgmma route also takes wt, the
-// wrapper's K-contiguous copy of w, (Cout, 27*Cin).
+// Cout) bf16.  Cout is a multiple of 8 and x is 16-byte aligned; the entry
+// refuses other shapes (cudaErrorInvalidValue), which the wrapper pads to
+// these with zero channels (its route wgmma_padded, below).  The wgmma
+// route also takes wt, the wrapper's K-contiguous copy of w, (Cout,
+// 27*Cin), 16-byte aligned.
 //
 // The GEMM: M = B*R^3 output voxels, N = Cout, K = 27*Cin.  At the
 // dtu9_full point (fast64 widths, 120 items of 64^3 a forward) its seven
@@ -23,9 +26,26 @@
 //   R 16, 128 -> 128, dil 1:  435 GFLOP, 0.25 GB  0.44 ms (operations) x2
 //   R 16, 128 -> 256, dil 2:  870 GFLOP, 0.38 GB  0.88 ms (operations)
 //   R 16, 256 -> 256, dil 2: 1739 GFLOP, 0.50 GB  1.76 ms (operations)
-// so all but the first layer are tensor-core bound.  The entry conv3d()
-// dispatches by shape alone to one of three routes (a route that fails to
-// launch returns the error; nothing falls back to another route).
+// so all but the first layer are tensor-core bound.  So is the widest
+// layer at the reference's own paper width (block 3, 120 items of 16^3):
+//   R 16, 300 -> 300, dil 2: 2389 GFLOP, 0.60 GB  2.42 ms (operations)
+// which the wrapper runs on route 1 at 304 -> 304 (2.48 ms of operations,
+// 2.7% more) after padding.  The entry conv3d() dispatches by shape alone
+// to one of two routes (a route that fails to launch returns the error;
+// nothing falls back to another route):
+//   Cin % 8 == 0: route 1, wgmma;
+//   1 <= Cin < 8 at dil <= 5, where the halo fits in shared memory: route
+//   2, halo_mma.
+// The wrapper (ops/cuda/conv3d.py::conv3d_route) sends every other shape
+// (Cin > 8 not a multiple of 8, Cout not a multiple of 8, Cin < 8 above
+// dil 5, x not 16-byte aligned) to route 1 as
+// wgmma_padded: x's channels zero-padded to Cin8 = ceil(Cin / 8) * 8 in a
+// new tensor, w to (27 * Cin8, Cout8) and b to Cout8 with zeros, the
+// output sliced back to Cout.  Zero channels add exact zeros to the f32
+// sums, so the function is the same.  The padding costs two passes over
+// memory outside the kernel (x in, the output out); route 1's A pieces are
+// 16-byte cp.async copies of 8 channels of one voxel, which a row of Cin
+// 300 (600 bytes) or of an odd Cin (2-byte aligned) cannot give.
 //
 // Route 1, Cin % 8 == 0 (the six tensor-bound layers): wgmma.  One block
 // of two warpgroups (256 threads) computes 128 voxels x BN channels,
@@ -101,8 +121,9 @@
 // 98 KB of shared memory and at most 128 registers a thread at Cin 6, Cout
 // 32: two blocks an SM, so one block's copies and spreading overlap the
 // other's products.  A wider dilation grows the halo; the tile's rows are
-// halved until it fits in 227 KB, and past one row (dil above 5 at Cin 6)
-// the launch is refused.  Choices against their alternatives
+// halved until it fits in 227 KB; it fits at every Cin and Cout up to dil
+// 5 (MAX_DIL), and a wider dilation is refused (the wrapper sends such a
+// shape to wgmma_padded instead).  Choices against their alternatives
 // (scripts/torch_conv3d_variants.py, numbers in PERF.md): wgmma over
 // mma.sync on ldmatrix fragments of the same halo; 8 x 5 rows over 4 x 4
 // and 8 x 4 (more halo a voxel), 8 x 8 (one block an SM) and 8 x 2 with
@@ -115,221 +136,12 @@
 // bounds it now: the wgmma operands come from shared memory (2 KB of A and
 // 1 KB of B for each 64 x 32 x 16 product), and a block's copies and
 // spreading wait between barriers.
-//
-// Route 3, any other Cin (Cin > 8 and not a multiple of 8: tiny's 12, the
-// paper width's 300): the first design of this kernel, not redesigned.  One
-// block of 256 threads computes a tile of 128 voxels x BN (32, 64 or 128)
-// output channels, looping over K in chunks of 32; the threads build the
-// im2col A tile (128 x 32) in shared memory from scalar loads (every k
-// decodes into (tap, cin), and a neighbour outside the volume or k >= K
-// reads as zero) and the B tile (32 x BN) from w with 16-byte loads.  Two
-// shared-memory stages: the next chunk's loads go into registers before the
-// current chunk's products, one barrier per chunk.  Eight warps (4 along M
-// x 2 along N) multiply with nvcuda::wmma 16x16x16 (bf16 in, f32
-// accumulate); the epilogue stages each 16x16 accumulator through shared
-// memory and stores 8 channels per 16-byte store.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-
 namespace {
-
-// ---------------------------------------------------------------------------
-// Route 3: Cin > 8 and not a multiple of 8, a wmma kernel with scalar loads.
-
-constexpr int BM = 128;       // output voxels per block
-constexpr int BK = 32;        // K chunk
-constexpr int THREADS = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int LDA = BK + 8;   // A row pitch in bf16 (80 B: 16 B aligned)
-
-struct Geometry {
-  const uint16_t* x;  // bf16 bits
-  long long M;        // B * R^3
-  int R, Cin, K, dil;
-};
-
-// One channel (k) of the neighbour, as bf16 bits; zero outside or past K.
-__device__ __forceinline__ uint32_t fetch1(const Geometry& g,
-                                           const uint16_t* xb, int z, int y,
-                                           int xx, int k) {
-  if (k >= g.K) return 0u;
-  const int tap = k / g.Cin;
-  const int cin = k - tap * g.Cin;
-  const int zz = z + (tap / 9 - 1) * g.dil;
-  const int yy = y + ((tap / 3) % 3 - 1) * g.dil;
-  const int xq = xx + (tap % 3 - 1) * g.dil;
-  if (zz < 0 || zz >= g.R || yy < 0 || yy >= g.R || xq < 0 || xq >= g.R)
-    return 0u;
-  return xb[(((size_t)zz * g.R + yy) * g.R + xq) * g.Cin + cin];
-}
-
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 2)
-    conv3d_kernel(Geometry g, const uint16_t* __restrict__ w,
-                  const float* __restrict__ bias, uint16_t* __restrict__ out,
-                  int Cout, int relu, int n_tiles) {
-  constexpr int LDB = BN + 8;             // B row pitch in bf16
-  constexpr int A_ELEMS = BM * LDA;
-  constexpr int STAGE = A_ELEMS + BK * LDB;
-  constexpr int WN = BN / 2;              // warp tile: 32 x WN
-  constexpr int FN = WN / 16;
-  constexpr int B_VECS = BK * BN / 8;     // 16-byte vectors per B tile
-  constexpr int B_PER_THREAD = (B_VECS + THREADS - 1) / THREADS;
-  __shared__ __align__(128) unsigned char smem_raw[2 * STAGE * 2];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int n_tile = blockIdx.x % n_tiles;
-  const long long m0 = (long long)(blockIdx.x / n_tiles) * BM;
-  const int n0 = n_tile * BN;
-
-  // this thread's im2col row and its 16 k positions [half*16, half*16+16)
-  const int row = tid >> 1;
-  const int half = tid & 1;
-  const long long v = m0 + row;
-  const bool row_ok = v < g.M;
-  const long long R3 = (long long)g.R * g.R * g.R;
-  const long long item = row_ok ? v / R3 : 0;
-  const int q = row_ok ? (int)(v - item * R3) : 0;
-  const int z = q / (g.R * g.R);
-  const int y = (q / g.R) % g.R;
-  const int xx = q % g.R;
-  const uint16_t* xb = g.x + (size_t)item * R3 * g.Cin;
-
-  uint4 a_reg[2];
-  uint4 b_reg[B_PER_THREAD];
-
-  auto load = [&](int k0) {
-    const int kb = k0 + half * 16;
-    if (!row_ok) {
-      a_reg[0] = a_reg[1] = make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      uint32_t p[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        p[e] = fetch1(g, xb, z, y, xx, kb + 2 * e) |
-               (fetch1(g, xb, z, y, xx, kb + 2 * e + 1) << 16);
-      }
-      a_reg[0] = make_uint4(p[0], p[1], p[2], p[3]);
-      a_reg[1] = make_uint4(p[4], p[5], p[6], p[7]);
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER_THREAD; ++i) {
-      const int idx = tid + i * THREADS;
-      const int r = idx / (BN / 8);
-      const int n = n0 + (idx % (BN / 8)) * 8;
-      const int k = k0 + r;
-      b_reg[i] = (idx < B_VECS && k < g.K && n < Cout)
-                     ? *reinterpret_cast<const uint4*>(w + (size_t)k * Cout + n)
-                     : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-
-  auto store = [&](int stage) {
-    __nv_bfloat16* sA = smem + stage * STAGE;
-    __nv_bfloat16* sB = sA + A_ELEMS;
-    uint4* a_dst = reinterpret_cast<uint4*>(sA + row * LDA + half * 16);
-    a_dst[0] = a_reg[0];
-    a_dst[1] = a_reg[1];
-#pragma unroll
-    for (int i = 0; i < B_PER_THREAD; ++i) {
-      const int idx = tid + i * THREADS;
-      if (idx < B_VECS) {
-        const int r = idx / (BN / 8);
-        const int c = (idx % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(sB + r * LDB + c) = b_reg[i];
-      }
-    }
-  };
-
-  const int warp = tid >> 5;
-  const int wm = warp & 3;   // rows wm*32 .. +32 of the block tile
-  const int wn = warp >> 2;  // cols wn*WN .. +WN
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int n_chunks = (g.K + BK - 1) / BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int c = 0; c < n_chunks; ++c) {
-    const bool more = c + 1 < n_chunks;
-    if (more) load((c + 1) * BK);
-    const __nv_bfloat16* sA = smem + (c & 1) * STAGE;
-    const __nv_bfloat16* sB = sA + A_ELEMS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], sA + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], sB + kk * LDB + wn * WN + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    if (more) store((c + 1) & 1);
-    __syncthreads();
-  }
-
-  // epilogue: each warp stages one 16x16 accumulator at a time in its own
-  // 1 KB of the (now free) shared memory; lane -> row lane/2, 8 columns
-  float* scratch = reinterpret_cast<float*>(smem_raw) + warp * 256;
-  const int lane = tid & 31;
-  const int er = lane >> 1;
-  const int ec = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long orow = m0 + wm * 32 + i * 16 + er;
-      const int col = n0 + wn * WN + j * 16 + ec;
-      if (orow < g.M && col < Cout) {
-        uint32_t p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float lo = scratch[er * 16 + ec + 2 * e] + bias[col + 2 * e];
-          float hi = scratch[er * 16 + ec + 2 * e + 1] + bias[col + 2 * e + 1];
-          if (relu) {
-            lo = fmaxf(lo, 0.0f);
-            hi = fmaxf(hi, 0.0f);
-          }
-          __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-          p[e] = *reinterpret_cast<uint32_t*>(&h);
-        }
-        *reinterpret_cast<uint4*>(out + (size_t)orow * Cout + col) =
-            make_uint4(p[0], p[1], p[2], p[3]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <int BN>
-void launch(const Geometry& g, const void* w, const void* bias, void* out,
-            int Cout, int relu, cudaStream_t stream) {
-  const int n_tiles = (Cout + BN - 1) / BN;
-  const long long m_tiles = (g.M + BM - 1) / BM;
-  conv3d_kernel<BN><<<(unsigned)(m_tiles * n_tiles), THREADS, 0, stream>>>(
-      g, (const uint16_t*)w, (const float*)bias, (uint16_t*)out, Cout, relu,
-      n_tiles);
-}
 
 // ---------------------------------------------------------------------------
 // Route 1: Cin % 8 == 0, wgmma fed by a cp.async ring.
@@ -706,6 +518,10 @@ constexpr int KSTEPS = TAPS / 2;
 constexpr int STAGE_BYTES = 16 * 64;  // a warp's 16 voxels x 32 channels
 constexpr int ZERO_BYTES = TX * 16;   // 64 zero rows: tap 27's A
 constexpr int MAX_SMEM = 232448;      // 227 KB, the most a block may have
+// the widest dilation taken: at every Cin < 8 and every Cout the halo
+// fits in shared memory up to here, and the wrapper (ops/cuda/conv3d.py::
+// HALO_MAX_DIL) pads a wider one to Cin 8 for route 1 instead
+constexpr int MAX_DIL = 5;
 
 struct Shape {
   int R, Cout, dil, relu;
@@ -1051,8 +867,8 @@ int launch_cin(const void* x, const void* w, const void* bias, void* out,
   s.nb = Cout < NB ? Cout : NB;
   s.ty = TILE_Y;
   s.tz = TILE_Z;
-  // a wide dilation grows the halo: halve the tile's rows until it fits;
-  // past one row it does not, and the launch is refused
+  if (dil > MAX_DIL) return (int)cudaErrorInvalidValue;
+  // a wide dilation grows the halo: halve the tile's rows until it fits
   for (;;) {
     s.hx = TX + 2 * dil;
     s.hy = s.ty + 2 * dil;
@@ -1128,26 +944,19 @@ extern "C" int conv3d(const void* x, const void* w, const void* wt,
                       int Cout, int dil, int relu, void* stream) {
   const long long M = (long long)B * R * R * R;
   if (M <= 0 || Cout <= 0) return 0;
+  // both routes copy x and store the output 16 bytes (8 channels) at a
+  // time; the wrapper pads any other shape (wgmma_padded)
+  if (Cout % 8 != 0 || (uintptr_t)x % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (Cin % 8 == 0) {
+    if ((uintptr_t)wt % 16 != 0) return (int)cudaErrorInvalidValue;
     if (Cout >= 128)
       return wg::launch<128>(x, wt, bias, out, M, R, Cin, Cout, dil, relu, s);
     return wg::launch<64>(x, wt, bias, out, M, R, Cin, Cout, dil, relu, s);
   }
   if (Cin < 8)
     return halo::launch(x, w, bias, out, B, R, Cin, Cout, dil, relu, s);
-  Geometry g;
-  g.x = (const uint16_t*)x;
-  g.M = M;
-  g.R = R;
-  g.Cin = Cin;
-  g.K = 27 * Cin;
-  g.dil = dil;
-  if (Cout >= 128)
-    launch<128>(g, w, bias, out, Cout, relu, s);
-  else if (Cout > 32)
-    launch<64>(g, w, bias, out, Cout, relu, s);
-  else
-    launch<32>(g, w, bias, out, Cout, relu, s);
-  return (int)cudaGetLastError();
+  // any other Cin: the wrapper pads it to a multiple of 8 (wgmma_padded)
+  return (int)cudaErrorInvalidValue;
 }

@@ -35,7 +35,9 @@ from surfacenet_tpu_torch.models.surfacenet import (
     init_surfacenet, make_predictor,
 )
 from surfacenet_tpu_torch.ops.conv3d import conv3d_plain, pack_conv_weight
-from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d, conv3d_route
+from surfacenet_tpu_torch.ops.cuda.conv3d import (
+    conv3d, conv3d_route, pad_operands,
+)
 
 torch.set_num_threads(2)
 
@@ -48,10 +50,12 @@ def within_one_bf16_ulp(got, ref):
 
 
 @pytest.mark.parametrize("dil", [1, 2])
-@pytest.mark.parametrize("cin,cout", [(6, 8), (8, 16), (3, 8), (7, 16)])
+@pytest.mark.parametrize("cin,cout", [(6, 8), (8, 16), (3, 8), (7, 16),
+                                      (12, 5), (300, 300)])
 def test_conv3d_plain_matches_pallas_interpret(dil, cin, cout):
     rng = np.random.default_rng(dil * 100 + cin)
-    x = rng.standard_normal((2, D, D, D, cin)).astype(np.float32)
+    B = 1 if cin * cout > 1000 else 2  # the 300-wide case: one volume
+    x = rng.standard_normal((B, D, D, D, cin)).astype(np.float32)
     w = (rng.standard_normal((3, 3, 3, cin, cout)) * 0.1).astype(np.float32)
     b = (rng.standard_normal(cout) * 0.1).astype(np.float32)
     ref = np.asarray(conv3d_pallas(
@@ -62,18 +66,60 @@ def test_conv3d_plain_matches_pallas_interpret(dil, cin, cout):
     got = conv3d(torch.tensor(x).to(torch.bfloat16),
                  pack_conv_weight(wt).to(torch.bfloat16).contiguous(),
                  torch.tensor(b), dil=dil, relu=True)
-    assert got.dtype == torch.bfloat16 and got.shape == (2, D, D, D, cout)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, D, D, D, cout)
     assert got.is_contiguous()
     assert within_one_bf16_ulp(got.float().numpy(), ref).all()
     assert (ref > 0).any() and (ref == 0).any()  # ReLU did cut
 
 
-@pytest.mark.parametrize("cin,route", [
-    (6, "halo_mma"), (1, "halo_mma"), (7, "halo_mma"), (8, "wgmma"),
-    (128, "wgmma"), (12, "wmma_scalar"), (300, "wmma_scalar"),
+@pytest.mark.parametrize("cin,cout,dil,aligned,route", [
+    (6, 32, 1, True, "halo_mma"), (1, 32, 1, True, "halo_mma"),
+    (7, 32, 1, True, "halo_mma"), (8, 32, 1, True, "wgmma"),
+    (128, 128, 2, True, "wgmma"), (12, 16, 1, True, "wgmma_padded"),
+    (300, 304, 2, True, "wgmma_padded"),
+    # Cout not a multiple of 8, on both kernel routes' Cin
+    (8, 5, 1, True, "wgmma_padded"), (6, 5, 1, True, "wgmma_padded"),
+    # the halo route's cap, HALO_MAX_DIL 5, at every Cin below 8 and Cout
+    (6, 32, 5, True, "halo_mma"), (6, 32, 6, True, "wgmma_padded"),
+    (6, 32, 8, True, "wgmma_padded"), (1, 8, 5, True, "halo_mma"),
+    (1, 8, 6, True, "wgmma_padded"),
+    # x off a 16-byte boundary: copied by the padded route
+    (6, 32, 1, False, "wgmma_padded"), (8, 32, 1, False, "wgmma_padded"),
+    (128, 32, 1, False, "wgmma_padded"),
 ])
-def test_conv3d_route_by_cin(cin, route):
-    assert conv3d_route(cin) == route
+def test_conv3d_route_by_cin(cin, cout, dil, aligned, route):
+    assert conv3d_route(cin, cout, dil, aligned) == route
+
+
+@pytest.mark.parametrize("cin,cout,dil", [(12, 5, 1), (300, 300, 2),
+                                          (6, 8, 8), (8, 5, 1)])
+def test_pad_operands_give_the_same_conv(cin, cout, dil):
+    """``wgmma_padded``'s padding is the same function: the plain conv on
+    the padded operands, sliced back to Cout, equals the plain conv on the
+    originals bit for bit (zero channels add exact zeros).  The values are
+    small multiples of 1/64, so every float32 partial sum is exact (at most
+    27 * 300 * 24 units of 1/64 < 2^24): the comparison sees the padding
+    alone, not the order in which the CPU's conv adds, which changes with
+    the channel count."""
+    rng = np.random.default_rng(cin + cout)
+    x = torch.tensor(rng.integers(-3, 4, (1, D, D, D, cin)),
+                     dtype=torch.bfloat16)
+    w = torch.tensor(rng.integers(-8, 9, (27 * cin, cout)) / 64,
+                     dtype=torch.bfloat16)
+    b = torch.tensor(rng.integers(-64, 65, cout) / 64, dtype=torch.float32)
+    xp, wp, bp = pad_operands(x, w, b)
+    cin8, cout8 = -(-cin // 8) * 8, -(-cout // 8) * 8
+    assert xp.shape == (1, D, D, D, cin8) and xp.is_contiguous()
+    assert wp.shape == (27 * cin8, cout8) and bp.shape == (cout8,)
+    assert xp.data_ptr() % 16 == 0
+    assert (xp.data_ptr() == x.data_ptr()) == (cin == cin8)  # no copy
+    assert not xp[..., cin:].any() and not bp[cout:].any()
+    assert not wp.view(27, cin8, cout8)[:, cin:].any()
+    assert not wp[:, cout:].any()
+    got = conv3d_plain(xp, wp, bp, dil)[..., :cout]
+    want = conv3d_plain(x, w, b, dil)
+    assert (want > 0).any() and (want == 0).any()
+    assert torch.equal(got, want)
 
 
 def test_pack_conv_weight_is_the_dhwio_reshape():
@@ -244,10 +290,10 @@ def test_fused_params_send_every_conv_to_a_fast_route(name):
     for blk, ch, n_convs in zip(params["blocks"], cfg.block_channels,
                                 cfg.convs_per_block):
         assert len(blk["convs"]) == n_convs
-        for w, b, _ in blk["convs"]:
+        for w, b, dil in blk["convs"]:
             assert w.shape == (27 * cin, -(-ch // 8) * 8) and b.shape == (
                 w.shape[1],)
-            assert conv3d_route(cin) in ("wgmma", "halo_mma")
+            assert conv3d_route(cin, w.shape[1], dil) in ("wgmma", "halo_mma")
             cin = w.shape[1]
         assert blk["side_w"].shape == (cin, cfg.side_channels)
     # the paper width's 300 becomes 304, tiny's 12 becomes 16

@@ -28,7 +28,9 @@ from surfacenet_tpu_torch.ops.cuda.affine_pool import (
     affine_pool, ray_max_mask_affine_cuda,
 )
 from surfacenet_tpu_torch.ops.cuda.affine_vote import affine_route, affine_vote
-from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d
+from surfacenet_tpu_torch.ops.cuda.conv3d import (
+    HALO_MAX_DIL, _kernel_fn, _run, conv3d, conv3d_route,
+)
 from surfacenet_tpu_torch.ops.cuda.warp_gather import (
     build_cvc_batch_cuda, warp_gather,
 )
@@ -182,9 +184,12 @@ def conv_inputs(device, B, R, cin, cout, seed):
     (6, 32, 1, 5, True), (6, 32, 1, 13, True),
     (6, 8, 1, 16, True), (6, 72, 1, 16, True), (6, 128, 1, 16, True),
     (6, 32, 1, 16, False),
-    # the scalar route (Cin > 8, not a multiple of 8): tiny's and the
-    # paper width's
+    # the padded route (wgmma_padded): Cin > 8 not a multiple of 8 (tiny's
+    # and the paper width's), Cout not a multiple of 8, the paper width's
+    # block 3 at the reference's own width, and Cin 6 at a dilation above
+    # the halo route's cap
     (12, 16, 1, 8, True), (300, 16, 2, 8, True),
+    (12, 5, 1, 8, True), (300, 300, 2, 8, True), (6, 32, 8, 16, True),
 ])
 def test_conv3d_kernel_matches_plain(cuda, cin, cout, dil, R, relu):
     x, w, b = conv_inputs(cuda, 3, R, cin, cout, cin + cout + dil)
@@ -217,13 +222,66 @@ def test_conv3d_kernel_ragged_m_and_no_relu(cuda):
 
 
 def test_conv3d_halo_route_refuses_a_halo_too_wide(cuda):
-    """At dil 8 even one row of the halo route's tile does not fit in shared
-    memory: the launch fails and the wrapper raises; no other route runs."""
+    """At dil 8, above the halo route's cap (even one row of its tile would
+    not fit in shared memory), the halo route refuses the shape, and the
+    wrapper computes it through ``wgmma_padded`` (Cin padded to 8), one
+    launch, within one bf16 ulp of the plain version."""
     x, w, b = conv_inputs(cuda, 1, 16, 6, 32, 5)
-    before = conv3d.launches
+    assert conv3d_route(6, 32, 8) == "wgmma_padded"
     with pytest.raises(RuntimeError, match="launch failed"):
-        conv3d(x, w, b, dil=8)
-    assert conv3d.launches == before
+        _run(_kernel_fn(), x, w, b, 8, True, "halo_mma")
+    before, routes = conv3d.launches, dict(conv3d.route_launches)
+    got = conv3d(x, w, b, dil=8)
+    ref = conv3d_plain(x, w, b, 8, True)
+    torch.cuda.synchronize()
+    assert conv3d.launches == before + 1
+    assert conv3d.route_launches["wgmma_padded"] == routes["wgmma_padded"] + 1
+    assert within_one_bf16_ulp(got, ref).float().mean().item() >= 0.9999
+
+
+@pytest.mark.parametrize("cin", range(1, 8))
+@pytest.mark.parametrize("cout", [8, 64])
+def test_conv3d_halo_route_takes_dilations_up_to_its_cap(cuda, cin, cout):
+    """The C entry and ``conv3d_route`` share one cap, ``HALO_MAX_DIL``: at
+    the cap the halo route's launch runs (its tile fits in shared memory
+    at every Cin and Cout) and agrees with the plain version; one above it
+    the launch is refused."""
+    assert conv3d_route(cin, cout, HALO_MAX_DIL) == "halo_mma"
+    assert conv3d_route(cin, cout, HALO_MAX_DIL + 1) == "wgmma_padded"
+    x, w, b = conv_inputs(cuda, 1, 12, cin, cout, cin)
+    got = _run(_kernel_fn(), x, w, b, HALO_MAX_DIL, True, "halo_mma")
+    ref = conv3d_plain(x, w, b, HALO_MAX_DIL, True)
+    torch.cuda.synchronize()
+    assert within_one_bf16_ulp(got, ref).float().mean().item() >= 0.9999
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _run(_kernel_fn(), x, w, b, HALO_MAX_DIL + 1, True, "halo_mma")
+
+
+@pytest.mark.parametrize("cin,cout,dil,offset", [
+    (6, 32, 1, 0), (6, 32, 6, 0), (16, 32, 1, 0), (12, 16, 1, 0),
+    (16, 5, 1, 0), (6, 5, 1, 0),
+    # x two bytes past a 16-byte boundary: copied once by the padded route
+    (16, 32, 1, 2), (6, 32, 1, 2),
+])
+def test_conv3d_route_predicted_is_the_route_launched(cuda, cin, cout, dil,
+                                                      offset):
+    """The route ``conv3d_route`` names for a shape is the one whose count
+    ``route_launches`` raises, and the call agrees with the plain version
+    (a misaligned x lies at a byte offset into a larger buffer)."""
+    x, w, b = conv_inputs(cuda, 2, 8, cin, cout, cin + cout + dil)
+    if offset:
+        buf = torch.empty(x.numel() + 8, dtype=torch.bfloat16, device=cuda)
+        x = buf[offset // 2:offset // 2 + x.numel()].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 == offset
+    route = conv3d_route(cin, cout, dil, aligned=x.data_ptr() % 16 == 0)
+    before = dict(conv3d.route_launches)
+    got = conv3d(x, w, b, dil=dil)
+    ref = conv3d_plain(x, w, b, dil, True)
+    torch.cuda.synchronize()
+    ran = {r: conv3d.route_launches[r] - before[r] for r in before}
+    assert ran == {r: int(r == route) for r in before}
+    assert got.shape == ref.shape and got.is_contiguous()
+    assert within_one_bf16_ulp(got, ref).float().mean().item() >= 0.9999
 
 
 @pytest.mark.parametrize("cin,cout,dil,R,B", [
@@ -248,7 +306,8 @@ def test_conv3d_kernel_repeat_launch_is_bitwise(cuda, cin, cout, dil, R, B):
 def test_paper_width_fused_forward_takes_no_scalar_route(cuda):
     """ModelConfig() (block_channels (32, 80, 160, 300)) with fused
     inference: the 12 convs run on the wgmma and halo routes (block 3 padded
-    to 304 channels), never the scalar route, and the forward agrees with
+    to 304 channels once, by ``fused_params``), never on ``wgmma_padded``,
+    which would pad every call, and the forward agrees with
     its plain route within 1e-2 (bf16 roundings of sums taken in another
     order)."""
     cfg = dataclasses.replace(ModelConfig(), fused_inference=True)
@@ -268,7 +327,7 @@ def test_paper_width_fused_forward_takes_no_scalar_route(cuda):
     got = predictor(x, None)
     torch.cuda.synchronize()
     ran = {r: conv3d.route_launches[r] - before[r] for r in before}
-    assert ran == {"wgmma": 11, "halo_mma": 1, "wmma_scalar": 0}
+    assert ran == {"wgmma": 11, "halo_mma": 1, "wgmma_padded": 0}
     with torch.inference_mode():
         ref = fused_infer_apply(cfg, fused_params(net.state_dict(), cfg,
                                                   cuda), x,
@@ -369,11 +428,8 @@ def test_new_kernels_reject_bad_inputs(cuda):
     x = torch.zeros((1, 4, 4, 4, 8), dtype=torch.bfloat16, device=cuda)
     w = torch.zeros((27 * 8, 16), dtype=torch.bfloat16, device=cuda)
     b = torch.zeros(16, device=cuda)
-    misaligned = torch.zeros(x.numel() + 1, dtype=torch.bfloat16,
-                             device=cuda)[1:].view(x.shape)
     for bad in (dict(x=x.float()), dict(w=w[:, :12].contiguous()),
-                dict(b=b.cpu()), dict(x=x.cpu()), dict(x=x.transpose(1, 3)),
-                dict(x=misaligned)):
+                dict(b=b.cpu()), dict(x=x.cpu()), dict(x=x.transpose(1, 3))):
         with pytest.raises(ValueError):
             conv3d(**(dict(x=x, w=w, b=b) | bad))
     probs = torch.zeros((2, 4, 4, 4), device=cuda)
