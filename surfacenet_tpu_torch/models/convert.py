@@ -31,7 +31,20 @@ reference's ``weights/golden_{sphere,tori}_fast64_30k`` converted so::
              "weights_torch/golden_sphere_fast64_30k.npz")
 
 and load with ``load_surfacenet(path, ModelConfig.fast64())`` (the
-``dtu9_full`` preset's widths).
+``dtu9_full`` preset's widths).  ``weights_torch/golden_{sphere,tori}_
+30k.npz`` (33,529,682 bytes each: 8,375,537 float32 values and 16
+BatchNorm step counters) are the paper-width ``weights/golden_{sphere,
+tori}_30k`` converted the same way from a paper-width template::
+
+    cfg = Config(model=ModelConfig())  # = configs/dtu9_paper.json's model
+    cfg = cfg.replace(voxel=dataclasses.replace(cfg.voxel, cube_size=8))
+    _, v = load_pretrained("weights/golden_sphere_30k", cfg)
+    v = jax.tree_util.tree_map(np.asarray, v)
+    save_npz(params_from_jax(v), "weights_torch/golden_sphere_30k.npz")
+
+and load with ``load_surfacenet(path, ModelConfig())`` (the widths of
+``dtu9_paper``, ``dtu9_single``, ``dtu_eval_split``, ``highres_sharded``
+and ``tanks_temples``).
 
 ``pairnet_params_from_jax`` does the same for the pair net
 (``models/pairnet.py``): ``Conv`` kernels from HWIO to OIHW, not flipped

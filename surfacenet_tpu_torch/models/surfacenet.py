@@ -209,8 +209,9 @@ class SurfaceNet(nn.Module):
 
     Computes in ``cfg.dtype``: parameters of another dtype are cast where
     they are used, so float32 master weights train as the reference's
-    (``param_dtype=float32``), and ``make_predictor``'s copy, cast to
-    ``cfg.dtype`` once, runs without casts.  ``train()`` mode normalises
+    (``param_dtype=float32``), and ``make_predictor``'s copy, its convs
+    cast to ``cfg.dtype`` once (BatchNorm stays float32, as flax's), runs
+    without casts.  ``train()`` mode normalises
     by batch statistics and updates the running ones (``_batchnorm``;
     over every rank of ``bn_group`` when the forward is given one).
     The output is always float32.
@@ -482,7 +483,14 @@ def make_predictor(model: SurfaceNet, cfg: ModelConfig, device):
         model = FusedSurfaceNet(cfg, fused_params(model.state_dict(), cfg,
                                                   device))
     else:
-        model = model.to(device=device, dtype=DTYPES[cfg.dtype])
+        model = model.to(device=device)
+        # the convs' weights in cfg.dtype; BatchNorm keeps its float32
+        # parameters and statistics, as flax's does (its output is in x's
+        # dtype): rounded to bf16, they move each layer's output by more
+        # than the output's own rounding does
+        for m in model.modules():
+            if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+                m.to(dtype=DTYPES[cfg.dtype])
         model = model.to(memory_format=torch.channels_last_3d).eval()
 
     def predictor(x, origins=None):
