@@ -251,10 +251,35 @@ the run with a non-zero exit code and no result line):
       and float32 to float32 on >= 0.99; then (e) the sphere at the
       preset as shipped (the prepass on), reported, failing only without
       points (no record there);
-  22. the result line.
+  22. the trained eval split: ``cli.main(["reconstruct-all", ...,
+      "--checkpoint", "weights_torch/golden_multi_30k.npz", ...])``, the
+      one paper-width net the split shares, on phase 19's op-point scans
+      (not rendered again) linked as ``scan_sphere`` and ``scan_tori``
+      with their ground truth, at ``scripts/split_eval_demo.py``'s flags
+      (``SPLIT_SETS``: ``Config()``, 32^3 cubes of 0.5 mm, 4 pairs, tau
+      0.8, gamma 0.7, 32 cubes a batch, the bf16 gather); (a) unfused:
+      each scan's cubes equal to the JAX package's record
+      (``results/split_report_r02.json``), its points, accuracy and
+      completeness and the split mean within 10% of it, and one bf16
+      gather and one ``tile``-route vote a batch and a dense re-fetch
+      (each scan's points, non-empty cubes, batches, share beyond 5 mm,
+      stage seconds, sweep cubes/s with and without the first batch, peak
+      memory and launches reported); (b) the same split with
+      ``model.fused_inference=true``: 12 conv launches a forward (11
+      ``wgmma`` + 1 ``halo_mma``, no ``wgmma_padded``), >= 0.99 of the
+      points within one voxel of (a)'s, points and metrics within 2%;
+      (c) ``cli export --selfcheck`` of the fused forward at 128 items
+      (32 cubes x 4 pairs): within 1e-5, 12 conv launches a loaded call;
+      (d) each of the 12 convs at its padded shape and 128 items (R 32,
+      16 and 8; block 3 at dil 2) against its plain version, as phase 14
+      at 64^3: >= 0.9999 within one bf16 ulp, never ``wgmma_padded``;
+  23. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
-non-zero without one.  Reads the shipped weights under ``weights_torch/``.
+non-zero without one.  ``python3 chip_smoke.py --split-alone`` runs the
+build and phase 22 alone (its scenes rendered in process), and prints its
+readings, not the result line.  Reads the shipped weights under
+``weights_torch/``.
 Writes only to a temporary directory and to the
 package's git-ignored build directory; its worker process and phase 18's
 two rank processes end before the script does.  Needs no PIL.
@@ -279,7 +304,7 @@ import torch.nn.functional as F
 
 from surfacenet_tpu_torch import bench, cli, native
 from surfacenet_tpu_torch.cli import reconstruct_scan
-from surfacenet_tpu_torch.config import baseline_config
+from surfacenet_tpu_torch.config import Config, baseline_config
 from surfacenet_tpu_torch.data.dtu import Scan, load_scan, write_scan
 from surfacenet_tpu_torch.data.synthetic import (
     make_occluded_scene, make_sphere_scene, make_tori_scene,
@@ -349,6 +374,11 @@ TRAINED_PAPER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # the JAX package's record of dtu9_full with the fast64 weights on the
 # op-point scenes of scripts/op_point_qualify.py (results/op_point_r05.json,
 # "shipped_combo_refine_on"); phase 19 holds the port to it within 10%
+OP_SCENES = {
+    "sphere": (make_sphere_scene, dict(n_views=12, hw=(600, 800),
+                                       radius=30.0, focal=200.0)),
+    "tori": (make_tori_scene, dict(n_views=12, hw=(600, 800), focal=800.0)),
+}
 OP_POINT_RECORD = {
     "sphere": {"acc_mm": 0.6872, "comp_mm": 0.5653, "n_pts": 24575},
     "tori": {"acc_mm": 0.8888, "comp_mm": 0.9704, "n_pts": 9905},
@@ -362,6 +392,28 @@ OP_POINT_RECORD_PAPER = {
     "tori": {"acc_mm": 0.8104, "comp_mm": 0.9956, "n_pts": 9114},
 }
 PAPER_RECORD_SETS = ("--set", "sweep.refine_calib=false")
+# the eval split's one shared trained net (paper widths), converted
+TRAINED_MULTI = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "weights_torch", "golden_multi_30k.npz")
+# the JAX package's record of `cli reconstruct-all --checkpoint
+# weights/golden_multi_30k` on the op-point scenes
+# (results/split_report_r02.json, scripts/split_eval_demo.py): points,
+# cubes and the clamped metrics (20 mm) a scan, and the split mean; its
+# flags on Config() are SPLIT_SETS; phase 22 holds the port to it within
+# 10%
+SPLIT_RECORD = {
+    "scan_sphere": {"points": 17642, "cubes": 343, "acc_mm": 0.6761,
+                    "comp_mm": 0.6121, "overall_mm": 0.6441},
+    "scan_tori": {"points": 9336, "cubes": 216, "acc_mm": 0.5740,
+                  "comp_mm": 0.6207, "overall_mm": 0.5974},
+    "_mean": {"acc_mm": 0.6250, "comp_mm": 0.6164, "overall_mm": 0.6208},
+}
+SPLIT_SETS = tuple(a for kv in (
+    "voxel.voxel_size_mm=0.5", "voxel.cube_size=32", "voxel.overlap=8",
+    "fusion.n_view_pairs=4", "fusion.tau=0.8", "fusion.gamma=0.7",
+    "fusion.n_pool_views=6", 'fusion.ray_pool_mode="affine_pallas"',
+    "sweep.cube_batch=32", "sweep.use_pallas_gather=true",
+) for a in ("--set", kv))
 # the least share of the voxels above tau on which (c)'s card bf16 forward
 # and CPU float32 forward agree: 0.99 at fast64's 7 convs; 0.985 through
 # the paper width's 12, where no bf16 forward keeps 0.99 (on phase 21's
@@ -1483,7 +1535,7 @@ def one_voxel_agreement(a, b, s):
 def write_op_scenes(tmp, scenes):
     """Each op-point scene as 12 PNGs under ``{tmp}/op_<name>`` with its
     ground truth ``surface_points(8000)`` as ``{tmp}/op_<name>_gt.ply``
-    (phases 19 and 21 read them): seconds a scene."""
+    (phases 19, 21 and 22 read them): seconds a scene."""
     write_s = {}
     for name, sc in scenes.items():
         t0 = time.perf_counter()
@@ -1492,6 +1544,60 @@ def write_op_scenes(tmp, scenes):
         write_ply(f"{tmp}/op_{name}_gt.ply", sc.surface_points(8000))
         write_s[name] = time.perf_counter() - t0
     return write_s
+
+
+def check_fused_routes(name, cfg, launches, n_forwards):
+    """Fails unless a fused run of ``n_forwards`` forwards or more (one a
+    batch, one a dense re-fetch) launched the conv kernel once a conv a
+    forward, the first layer's (Cin 6) on ``halo_mma``, the rest on
+    ``wgmma``, none on ``wgmma_padded``."""
+    layers = conv_layers(cfg.model, cfg.voxel.cube_size)
+    n_layers, n_halo = len(layers), sum(cin < 8 for _, cin, _, _ in layers)
+    routes = launches["conv3d_routes"]
+    forwards = launches["conv3d"] // n_layers
+    if (forwards < n_forwards
+            or routes != {"wgmma": (n_layers - n_halo) * forwards,
+                          "halo_mma": n_halo * forwards, "wgmma_padded": 0}):
+        raise RuntimeError(f"{name}'s convs ran {routes} in {n_forwards} "
+                           f"forwards, not {n_layers} a forward on the wgmma "
+                           f"and halo_mma routes alone")
+
+
+def fused_export(dev, cfg, path, args, name):
+    """``cli export ... --set model.fused_inference=true --selfcheck`` to
+    ``path`` (``args``: the checkpoint and config flags, ``cfg`` their
+    config) at the sweep's batch (cubes x pairs), then the loaded program
+    called once, its conv launches counted: fails above 1e-5, or unless
+    it launched the conv kernel once a conv of the forward.  Returns the
+    readings and the launches."""
+    items = cfg.sweep.cube_batch * cfg.fusion.n_view_pairs
+    n_layers = len(conv_layers(cfg.model, cfg.voxel.cube_size))
+    t0 = time.perf_counter()
+    ex = cli.main(["export", *args, "--out", path, "--batch", str(items),
+                   "--selfcheck"])
+    ex["wall_s"] = time.perf_counter() - t0
+    prog = torch.export.load(path).module()
+    x = torch.rand((items, cfg.voxel.cube_size, cfg.voxel.cube_size,
+                    cfg.voxel.cube_size, cfg.model.in_channels), device=dev,
+                   generator=torch.Generator(dev).manual_seed(5)) - 0.5
+    reset_counts()
+    with torch.inference_mode():
+        p = prog(x)
+    torch.cuda.synchronize()
+    launches = {"conv3d": conv3d.launches,
+                "conv3d_routes": dict(conv3d.route_launches)}
+    ex["loaded_conv_launches"] = conv3d.launches
+    ex["loaded_finite"] = bool(torch.isfinite(p).all())
+    log(f"{name} fused export {json.dumps(ex)}")
+    del prog, x, p
+    torch.cuda.empty_cache()
+    if ex["selfcheck_err"] is None or ex["selfcheck_err"] > 1e-5:
+        raise RuntimeError(f"the fused export's self-check failed: {ex}")
+    if ex["loaded_conv_launches"] != n_layers or not ex["loaded_finite"]:
+        raise RuntimeError(f"the loaded fused program launched the conv "
+                           f"kernel {ex['loaded_conv_launches']} times for "
+                           f"{n_layers} convs: {ex}")
+    return ex, launches
 
 
 def trained_phase(dev, tmp, preset, weights, record, sets=()):
@@ -1620,18 +1726,8 @@ def trained_phase(dev, tmp, preset, weights, record, sets=()):
     log(f"trained {preset} sphere fused {json.dumps(fused)}")
     check_sweep_launches("trained sphere fused", launches["sphere_fused"],
                          st_f.n_batches)
-    routes = launches["sphere_fused"]["conv3d_routes"]
-    layers = conv_layers(cfg.model, cfg.voxel.cube_size)
-    n_layers, n_halo = len(layers), sum(cin < 8 for _, cin, _, _ in layers)
-    forwards = launches["sphere_fused"]["conv3d"] // n_layers
-    # one forward a batch (and one a re-fetch): n_layers launches each,
-    # the first layer's (Cin 6) on halo_mma, the rest on wgmma
-    if (forwards < st_f.n_batches
-            or routes != {"wgmma": (n_layers - n_halo) * forwards,
-                          "halo_mma": n_halo * forwards, "wgmma_padded": 0}):
-        raise RuntimeError(f"the fused sweep's convs ran {routes} in "
-                           f"{st_f.n_batches} batches, not {n_layers} a "
-                           f"forward on the wgmma and halo_mma routes alone")
+    check_fused_routes("the fused sweep", cfg, launches["sphere_fused"],
+                       st_f.n_batches)
     # the two forwards round differently in bf16 (BatchNorm folded into
     # the bf16 kernels, or applied to the bf16 conv outputs), which moves
     # a surface voxel along its ray by one now and then: every point must
@@ -1676,34 +1772,10 @@ def trained_phase(dev, tmp, preset, weights, record, sets=()):
 
     # (d) cli export --selfcheck of the fused forward at the sweep's batch
     # (24 cubes x 5 pairs); then the loaded program alone, counted
-    items = cfg.sweep.cube_batch * cfg.fusion.n_view_pairs
-    t0 = time.perf_counter()
-    ex = cli.main(["export", "--checkpoint", sphere_w, "--preset", preset,
-                   *fused_set, "--out", f"{tmp}/{preset}_fused.pt2",
-                   "--batch", str(items), "--selfcheck"])
-    ex["wall_s"] = time.perf_counter() - t0
-    prog = torch.export.load(f"{tmp}/{preset}_fused.pt2").module()
-    x = torch.rand((items, cfg.voxel.cube_size, cfg.voxel.cube_size,
-                    cfg.voxel.cube_size, cfg.model.in_channels), device=dev,
-                   generator=torch.Generator(dev).manual_seed(5)) - 0.5
-    reset_counts()
-    with torch.inference_mode():
-        p = prog(x)
-    torch.cuda.synchronize()
-    launches["export_loaded"] = {"conv3d": conv3d.launches,
-                                 "conv3d_routes": dict(conv3d.route_launches)}
-    ex["loaded_conv_launches"] = conv3d.launches
-    ex["loaded_finite"] = bool(torch.isfinite(p).all())
-    out["export"] = ex
-    log(f"trained {preset} fused export {json.dumps(ex)}")
-    del prog, x, p
-    torch.cuda.empty_cache()
-    if ex["selfcheck_err"] is None or ex["selfcheck_err"] > 1e-5:
-        raise RuntimeError(f"the fused export's self-check failed: {ex}")
-    if ex["loaded_conv_launches"] != n_layers or not ex["loaded_finite"]:
-        raise RuntimeError(f"the loaded fused program launched the conv "
-                           f"kernel {ex['loaded_conv_launches']} times for "
-                           f"{n_layers} convs: {ex}")
+    out["export"], launches["export_loaded"] = fused_export(
+        dev, cfg, f"{tmp}/{preset}_fused.pt2",
+        ["--checkpoint", sphere_w, "--preset", preset, *fused_set],
+        f"trained {preset}")
 
     # (e) the sphere with the other prepass setting, reported (no record)
     if not prepass:
@@ -1749,6 +1821,205 @@ def trained_phase(dev, tmp, preset, weights, record, sets=()):
         "points": {k: len(v) for k, v in pts.items()}}
     log(f"trained {preset} sphere without the prepass "
         f"{json.dumps(out['sphere_no_prepass'])}")
+    return out, launches
+
+
+def grown(after, before):
+    """The growth of nested launch counts from ``before`` to ``after``."""
+    return {k: grown(v, before[k]) if isinstance(v, dict) else v - before[k]
+            for k, v in after.items()}
+
+
+def split_counts():
+    return dict(launch_counts(), conv3d=conv3d.launches,
+                conv3d_routes=dict(conv3d.route_launches))
+
+
+class split_scans:
+    """Within the block, each ``cli.reconstruct_scan`` call (one a scan of
+    ``reconstruct-all``) is synchronised after it and leaves in
+    ``self.runs`` its kernel launches (the counts' growth over the call),
+    its peak memory, its dense re-fetch dispatches and the time at which
+    each of its batches was harvested, with the batch's cubes."""
+
+    def __enter__(self):
+        from surfacenet_tpu_torch.pipeline import sweep as sweep_mod
+
+        self.runs, self.mod = [], sweep_mod
+        self.real = (cli.reconstruct_scan, sweep_mod.harvest_batch)
+        harvested = []
+
+        def harvest(step, plan, rows, nb, out, device, D):
+            occ, fused, color, n_short, n_dense = self.real[1](
+                step, plan, rows, nb, out, device, D)
+            harvested.append((time.perf_counter(), nb, n_dense))
+            return occ, fused, color, n_short, n_dense
+
+        def scan(*args, **kw):
+            before = split_counts()
+            harvested.clear()
+            torch.cuda.reset_peak_memory_stats()
+            out = self.real[0](*args, **kw)
+            torch.cuda.synchronize()
+            self.runs.append({
+                "launches": grown(split_counts(), before),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "dense_dispatches": sum(h[2] for h in harvested),
+                "harvested": [h[:2] for h in harvested]})
+            return out
+
+        cli.reconstruct_scan, sweep_mod.harvest_batch = scan, harvest
+        return self
+
+    def __exit__(self, *exc):
+        cli.reconstruct_scan, self.mod.harvest_batch = self.real
+
+
+def trained_split_phase(dev, tmp):
+    """Phase 22: the eval split with its one shared trained net at the
+    paper's widths, ``cli reconstruct-all --checkpoint
+    weights_torch/golden_multi_30k.npz`` with ``SPLIT_SETS`` on the
+    op-point scans ``write_op_scenes`` wrote, named as the record names
+    them: (a) unfused, each scan and the split mean held to
+    ``SPLIT_RECORD``; (b) fused, held to (a); (c) ``cli export
+    --selfcheck`` of the fused forward; (d) each of its convs at the
+    split's shapes against the plain version.  Returns the readings and
+    each run's kernel launches."""
+    split, gt = f"{tmp}/trained_split", f"{tmp}/trained_split_gt"
+    os.makedirs(split)
+    os.makedirs(gt)
+    for name in ("sphere", "tori"):
+        os.symlink(f"{tmp}/op_{name}", f"{split}/scan_{name}")
+        os.symlink(f"{tmp}/op_{name}_gt.ply", f"{gt}/scan_{name}.ply")
+    scans = [f"{split}/scan_sphere", f"{split}/scan_tori"]
+    fused_set = ("--set", "model.fused_inference=true")
+    # the fused run's config, as `cli` builds it from the flags
+    cfg = cli._apply_overrides(Config(), [*SPLIT_SETS[1::2], fused_set[1]])
+    out, launches = {}, {}
+
+    def reconstruct_all(label, *extra):
+        """One split run: its report, per-scan readings and launches."""
+        reset_counts()
+        t0 = time.perf_counter()
+        with split_scans() as sc:
+            report, runs = cli.main([
+                "reconstruct-all", "--scans", *scans, "--out-dir",
+                f"{tmp}/trained_split_{label}", "--gt-dir", gt, "--checkpoint",
+                TRAINED_MULTI, *SPLIT_SETS, *extra])
+        wall = time.perf_counter() - t0
+        rows = {}
+        for (name, (st, tm)), rec in zip(runs.items(), sc.runs):
+            ply = f"{tmp}/trained_split_{label}/{name}.ply"
+            far = min_dists(read_ply(ply)[0], read_ply(f"{gt}/{name}.ply")[0],
+                            device=dev) > 5.0
+            (t_first, _), *warm = rec["harvested"]
+            warm_s = warm[-1][0] - t_first if warm else float("nan")
+            rows[name] = {
+                **report[name], "far_5mm_share": float(far.mean()),
+                "record": SPLIT_RECORD[name],
+                "nonempty": st.n_cubes_nonempty, "batches": st.n_batches,
+                "refetched": st.n_refetched,
+                "dense_dispatches": rec["dense_dispatches"],
+                "cubes_per_s": st.n_cubes_after_prefilter / st.sweep_s,
+                # after the first batch's harvest: cuDNN's autotune and
+                # the first allocations are behind
+                "warm_cubes_per_s": sum(n for _, n in warm) / warm_s,
+                "stages": tm, "peak_mem_gb": rec["peak_mem_gb"],
+                "launches": rec["launches"]}
+            launches[f"{name}_{label}"] = rec["launches"]
+            log(f"trained split {label} {name} {json.dumps(rows[name])}")
+            dispatches = st.n_batches + rec["dense_dispatches"]
+            check_sweep_launches(f"trained split {label} {name}",
+                                 rec["launches"], st.n_batches)
+            if (rec["launches"]["warp_gather"] != dispatches
+                    or rec["launches"]["affine_vote"] != dispatches):
+                raise RuntimeError(
+                    f"trained split {label} {name}: gather and vote "
+                    f"launches {rec['launches']} are not one a batch "
+                    f"({st.n_batches}) and one a dense re-fetch "
+                    f"({rec['dense_dispatches']})")
+        rows["_mean"] = dict(report["_mean"], record=SPLIT_RECORD["_mean"])
+        rows["wall_s"] = wall
+        log(f"trained split {label} mean {json.dumps(rows['_mean'])} in "
+            f"{wall:.1f} s")
+        return rows
+
+    # (a) unfused, held to the record
+    out["unfused"] = a = reconstruct_all("unfused")
+    for name in ("scan_sphere", "scan_tori"):
+        want = SPLIT_RECORD[name]
+        if a[name]["cubes"] != want["cubes"]:
+            raise RuntimeError(f"trained split {name}: {a[name]['cubes']} "
+                               f"cubes, the record {want['cubes']}")
+        for key in ("points", "acc_mm", "comp_mm"):
+            if not within(a[name][key], want[key]):
+                raise RuntimeError(
+                    f"trained split {name}: {key} {a[name][key]} is not "
+                    f"within {OP_POINT_BAND:.0%} of the JAX record's "
+                    f"{want[key]}")
+    for key, ref in SPLIT_RECORD["_mean"].items():
+        if not within(a["_mean"][key], ref):
+            raise RuntimeError(f"trained split mean {key} {a['_mean'][key]} "
+                               f"is not within {OP_POINT_BAND:.0%} of the "
+                               f"JAX record's {ref}")
+
+    # (b) fused: the conv kernel on its two live routes, one forward a
+    # dispatch; within one voxel and 2% of (a)
+    out["fused"] = b = reconstruct_all("fused", *fused_set)
+    n_layers = len(conv_layers(cfg.model, cfg.voxel.cube_size))
+    for name in ("scan_sphere", "scan_tori"):
+        ln = launches[f"{name}_fused"]
+        dispatches = b[name]["batches"] + b[name]["dense_dispatches"]
+        check_fused_routes(f"the fused split's {name}", cfg, ln, dispatches)
+        if ln["conv3d"] != n_layers * dispatches:
+            raise RuntimeError(f"the fused split's {name}: {ln['conv3d']} "
+                               f"conv launches in {dispatches} forwards")
+        pa = read_ply(f"{tmp}/trained_split_unfused/{name}.ply")[0]
+        pf = read_ply(f"{tmp}/trained_split_fused/{name}.ply")[0]
+        b[name]["voxel_agreement"] = voxel_set_agreement(pf, pa)
+        b[name]["one_voxel_agreement"] = one_voxel_agreement(
+            pf, pa, cfg.voxel.voxel_size_mm)
+        log(f"trained split fused {name} against unfused: conv launches "
+            f"{json.dumps(ln['conv3d_routes'])}, agreement "
+            f"{b[name]['voxel_agreement']:.6f}, within one voxel "
+            f"{b[name]['one_voxel_agreement']:.6f}")
+        if (b[name]["one_voxel_agreement"] < 0.99
+                or any(not within(b[name][k], a[name][k], 0.02) for k in (
+                    "points", "acc_mm", "comp_mm", "overall_mm"))):
+            raise RuntimeError(f"the fused split's {name} differs from the "
+                               f"unfused one: {b[name]} against {a[name]}")
+
+    # (c) cli export --selfcheck of the fused forward at the split's batch
+    # (32 cubes x 4 pairs); then the loaded program alone, counted
+    out["export"], launches["export_loaded"] = fused_export(
+        dev, cfg, f"{tmp}/trained_split_fused.pt2",
+        ["--checkpoint", TRAINED_MULTI, *SPLIT_SETS, *fused_set],
+        "trained split")
+
+    # (d) each conv of (b)'s forward at its padded shape (fused_params) and
+    # the split's 128 items against its plain version: blocks 2 and 3 run
+    # at R 8 here (block 3 at dil 2), a shape no other phase holds
+    params = fused_params(load_surfacenet(TRAINED_MULTI, cfg.model)
+                          .state_dict(), cfg.model, dev)
+    packed = [conv for blk in params["blocks"] for conv in blk["convs"]]
+    gen = torch.Generator(dev).manual_seed(22)
+    items = cfg.sweep.cube_batch * cfg.fusion.n_view_pairs
+    out["conv_layers"] = []
+    for (R, cin, cout, dil), (w_p, _, _) in zip(
+            conv_layers(cfg.model, cfg.voxel.cube_size), packed):
+        layer = conv_layer(R, cin, cout, dil, items, gen, w_p.shape[0] // 27,
+                           w_p.shape[1])
+        log(f"conv3d trained split layer {json.dumps(layer)}")
+        if layer["route"] == "wgmma_padded":
+            raise RuntimeError(f"a padded trained split conv took the padded "
+                               f"route: {layer}")
+        out["conv_layers"].append(layer)
+    del params, packed
+    torch.cuda.empty_cache()
+    log(f"conv3d trained split, {items} items: kernel "
+        f"{sum(la['ms'] for la in out['conv_layers']):.4f} ms, cuDNN "
+        f"{sum(la['library_ms'] for la in out['conv_layers']):.4f} ms, bound "
+        f"{sum(la['bound_ms'] for la in out['conv_layers']):.4f} ms")
     return out, launches
 
 
@@ -2185,6 +2456,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--rank-job"]:
         return rank_job(sys.argv[2])
+    if sys.argv[1:] == ["--split-alone"]:
+        return split_alone()
     # one worker process renders phase 17's tori on the host while the
     # card runs phases 4-16; leaving the block terminates it
     with multiprocessing.get_context("spawn").Pool(1, os.nice,
@@ -2192,17 +2465,43 @@ def main() -> int:
         return run(pool)
 
 
-def run(pool) -> int:
-    dev = torch.device("cuda", 0)
-    t_start = time.perf_counter()
-
-    phase(1, "device")
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    smi_line = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def split_alone() -> int:
+    """``python3 chip_smoke.py --split-alone``: the build, the op-point
+    scenes, then phase 22 by itself, with no other phase's work before it
+    on the card or the host; prints its readings as one JSON line."""
+    log(card_line())
+    log(f"kernels built in {_build.build_all():.2f} s; native merge and "
+        f"denoise {os.path.basename(native.build())}")
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = {k: make(**kw) for k, (make, kw) in OP_SCENES.items()}
+        log(f"op-point scenes written in "
+            f"{json.dumps(write_op_scenes(tmp, scenes))} s")
+        del scenes
+        t0 = time.perf_counter()
+        out, launches = trained_split_phase(torch.device("cuda", 0), tmp)
+        out["wall_s"] = time.perf_counter() - t0
+    log(f"trained split phase {out['wall_s']:.1f} s")
+    print(json.dumps({"trained_split": out, "launches": launches}),
+          flush=True)
+    return 0
+
+
+def run(pool) -> int:
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    phase(1, "device")
+    smi_line = card_line()
     log(smi_line)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
@@ -2254,12 +2553,8 @@ def run(pool) -> int:
         n_views=12, hw=(600, 800), focal=1000.0))
     # phase 19's op-point scenes, as scripts/op_point_qualify.py renders
     # them, after it in the same worker
-    op_jobs = {
-        "sphere": pool.apply_async(make_sphere_scene, kwds=dict(
-            n_views=12, hw=(600, 800), radius=30.0, focal=200.0)),
-        "tori": pool.apply_async(make_tori_scene, kwds=dict(
-            n_views=12, hw=(600, 800), focal=800.0)),
-    }
+    op_jobs = {k: pool.apply_async(make, kwds=kw)
+               for k, (make, kw) in OP_SCENES.items()}
 
     cfg = baseline_config("dtu9_full")
     D, s = cfg.voxel.cube_size, cfg.voxel.voxel_size_mm
@@ -2334,6 +2629,13 @@ def run(pool) -> int:
     g_lib = grid_sample_ms(images_g, Ps_d, views, vorig, D, s)
     g_bound, g_by, n_pixels = gather_bound(images_g, Ps_d, views, vorig, D,
                                            s, n_valid)
+    # the same calls from one CUDA graph: far below ``g_ms``, the host paced
+    # the timed loop; close to it, the card ran the kernel that slowly
+    g_graph_ms = graph_ms(lambda: warp_gather(images_g, Ps_d, views, vorig,
+                                              D=D, s=s), iters=20)
+    log(f"warp_gather {g_ms:.4f} ms a call back to back, {g_graph_ms:.4f} "
+        f"ms from a CUDA graph; plain {g_plain:.4f} ms, F.grid_sample "
+        f"{g_lib:.4f} ms")
 
     window = resolve_pool_window(cfg)
     step_kw = dict(
@@ -2904,13 +3206,28 @@ def run(pool) -> int:
     log(f"trained paper-width phase {time.perf_counter() - t0:.1f} s")
     paper_sweeps = ("sphere", "tori", "sphere_fused", "sphere_shipped")
 
+    phase(22, "trained eval split: cli reconstruct-all --checkpoint "
+          "weights_torch/golden_multi_30k.npz on phase 19's op-point scans "
+          "as scan_sphere and scan_tori at the JAX record's flags, unfused "
+          "against the record, fused against unfused, cli export of the "
+          "fused forward, each of its convs against its plain version")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    split_tr, split_tr_launches = trained_split_phase(dev, tmp.name)
+    split_tr["wall_s"] = time.perf_counter() - t0
+    log(f"trained split phase {split_tr['wall_s']:.1f} s")
+    split_layers = split_tr.pop("conv_layers")
+    split_sweeps = ("scan_sphere_unfused", "scan_tori_unfused",
+                    "scan_sphere_fused", "scan_tori_fused")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
             "source": "surfacenet_tpu_torch/csrc/warp_gather.cu",
             "replaces": "surfacenet_tpu/ops/pallas/warp_gather.py:45",
             "launches": launches["warp_gather"], "max_abs_err": g_err,
-            "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
+            "ms": g_ms, "graph_ms": g_graph_ms, "plain_ms": g_plain,
+            "bound_ms": g_bound,
             "bound_by": g_by, "library_ms": g_lib,
             "validity_agreement": agree, "items": n_items, **training,
             "occlusion_path_launches": {
@@ -2928,6 +3245,9 @@ def run(pool) -> int:
             "trained_paper_path_launches": {
                 k: paper_launches[k]["warp_gather"] for k in paper_sweeps},
             "trained_paper": paper_tr,
+            "trained_split_path_launches": {
+                k: split_tr_launches[k]["warp_gather"] for k in split_sweeps},
+            "trained_split": split_tr,
             "bench_path_launches": bench_launches["warp_gather_bf16"],
             "bench": bench_out,
         },
@@ -2953,6 +3273,8 @@ def run(pool) -> int:
                 k: trained_launches[k]["affine_vote"] for k in sweeps},
             "trained_paper_path_launches": {
                 k: paper_launches[k]["affine_vote"] for k in paper_sweeps},
+            "trained_split_path_launches": {
+                k: split_tr_launches[k]["affine_vote"] for k in split_sweeps},
             "bench_path_launches": bench_launches["affine_vote"],
             "bench_route_launches": bench_launches["affine_vote_routes"],
         },
@@ -2970,6 +3292,10 @@ def run(pool) -> int:
             "trained_paper_path_launches": {
                 k: paper_launches[k]["conv3d"]
                 for k in ("sphere_fused", "export_loaded")},
+            "trained_split_path_launches": {
+                k: split_tr_launches[k]["conv3d"]
+                for k in ("scan_sphere_fused", "scan_tori_fused",
+                          "export_loaded")},
             "max_abs_err": max(layer["max_abs_err"] for layer in layers),
             # one forward: the seven layers' sums
             "ms": conv_ms,
@@ -2978,7 +3304,7 @@ def run(pool) -> int:
             "bound_by": "operations",
             "library_ms": breakdown_f["conv_library_ms"],
             "items": net_items, "route_launches": routes_f, "layers": layers,
-            "paper_width": paper,
+            "paper_width": paper, "trained_split_layers": split_layers,
             "reference_widths": {"route_launches": routes_ref,
                                  "layers": layers_ref},
         },
@@ -3013,7 +3339,7 @@ def run(pool) -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(22, "result")
+    phase(23, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

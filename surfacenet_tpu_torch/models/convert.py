@@ -44,7 +44,12 @@ tori}_30k`` converted the same way from a paper-width template::
 
 and load with ``load_surfacenet(path, ModelConfig())`` (the widths of
 ``dtu9_paper``, ``dtu9_single``, ``dtu_eval_split``, ``highres_sharded``
-and ``tanks_temples``).
+and ``tanks_temples``).  ``weights_torch/golden_multi_30k.npz`` (33,529,682
+bytes, the same 8,375,537 values and 16 counters) is ``weights/
+golden_multi_30k``, the one paper-width net that the eval split shares over
+both golden scenes, converted by the same recipe; ``cli reconstruct-all
+--checkpoint weights_torch/golden_multi_30k.npz`` runs the split with it
+(``scripts/split_eval_demo.py``'s flags, ``Config()`` otherwise).
 
 ``pairnet_params_from_jax`` does the same for the pair net
 (``models/pairnet.py``): ``Conv`` kernels from HWIO to OIHW, not flipped

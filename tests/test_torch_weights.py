@@ -1,7 +1,8 @@
 """The shipped SurfaceNet weights and the registered conv op.
 
-``weights_torch/golden_{sphere,tori}_fast64_30k.npz`` (fast64 widths) and
-``weights_torch/golden_{sphere,tori}_30k.npz`` (the paper's widths) are
+``weights_torch/golden_{sphere,tori}_fast64_30k.npz`` (fast64 widths),
+``weights_torch/golden_{sphere,tori}_30k.npz`` and the eval split's shared
+``weights_torch/golden_multi_30k.npz`` (the paper's widths) are
 conversions of the reference's Orbax checkpoints ``weights/golden_*_30k``
 (``models/convert.py``'s recipe).  Each is checked bitwise against a fresh
 conversion, and its forward through ``load_surfacenet`` against the
@@ -33,78 +34,77 @@ from surfacenet_tpu_torch.ops.cuda.conv3d import conv3d_op
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# model -> (checkpoint name, float32 values in it); "fast64" is the
-# dtu9_full preset's widths, "paper" the paper's (ModelConfig())
-MODELS = {"fast64": ("golden_{}_fast64_30k", 4110337),
-          "paper": ("golden_{}_30k", 8375537)}
-# (model, scene); the fast64 cases keep their scene-only ids
-CASES = pytest.mark.parametrize("model,scene", [
-    pytest.param("fast64", "sphere", id="sphere"),
-    pytest.param("fast64", "tori", id="tori"),
-    pytest.param("paper", "sphere", id="paper-sphere"),
-    pytest.param("paper", "tori", id="paper-tori"),
-])
+# case id -> (checkpoint name under weights/ and weights_torch/, float32
+# values in it, widths): "fast64" is the dtu9_full preset's widths,
+# "paper" the paper's (ModelConfig()); golden_multi_30k is the one net
+# the eval split shares over its scenes
+CHECKPOINTS = {
+    "sphere": ("golden_sphere_fast64_30k", 4110337, "fast64"),
+    "tori": ("golden_tori_fast64_30k", 4110337, "fast64"),
+    "paper-sphere": ("golden_sphere_30k", 8375537, "paper"),
+    "paper-tori": ("golden_tori_30k", 8375537, "paper"),
+    "multi": ("golden_multi_30k", 8375537, "paper"),
+}
+CASES = pytest.mark.parametrize("case", list(CHECKPOINTS))
 
 
-def shipped(model, scene):
-    return os.path.join(ROOT, "weights_torch",
-                        MODELS[model][0].format(scene) + ".npz")
+def shipped(case):
+    return os.path.join(ROOT, "weights_torch", CHECKPOINTS[case][0] + ".npz")
 
 
-def widths(config_cls, model):
-    return config_cls.fast64() if model == "fast64" else config_cls()
+def widths(config_cls, case):
+    return (config_cls.fast64() if CHECKPOINTS[case][2] == "fast64"
+            else config_cls())
 
 
 @pytest.fixture(scope="module")
 def reference():
-    """(model, scene) -> (flax model, numpy variables) of the Orbax
-    checkpoint, restored as ``models/convert.py`` says: an 8^3 float32
-    template."""
+    """case -> (flax model, numpy variables) of the Orbax checkpoint,
+    restored as ``models/convert.py`` says: an 8^3 float32 template."""
     from surfacenet_tpu.config import Config, ModelConfig
     from surfacenet_tpu.train.train_surface import load_pretrained
 
     runs = {}
 
-    def get(model, scene):
-        if (model, scene) not in runs:
-            cfg = Config(model=dataclasses.replace(widths(ModelConfig, model),
+    def get(case):
+        if case not in runs:
+            cfg = Config(model=dataclasses.replace(widths(ModelConfig, case),
                                                    dtype="float32"))
             cfg = cfg.replace(voxel=dataclasses.replace(cfg.voxel,
                                                         cube_size=8))
             flax_model, variables = load_pretrained(os.path.join(
-                ROOT, "weights", MODELS[model][0].format(scene)), cfg)
-            runs[model, scene] = (flax_model, jax.tree_util.tree_map(
-                np.asarray, variables))
-        return runs[model, scene]
+                ROOT, "weights", CHECKPOINTS[case][0]), cfg)
+            runs[case] = (flax_model, jax.tree_util.tree_map(np.asarray,
+                                                             variables))
+        return runs[case]
 
     return get
 
 
 @CASES
-def test_shipped_surfacenet_npz_is_a_fresh_conversion(reference, model,
-                                                      scene):
-    _, variables = reference(model, scene)
+def test_shipped_surfacenet_npz_is_a_fresh_conversion(reference, case):
+    _, variables = reference(case)
     fresh = params_from_jax(variables)
-    stored = load_npz(shipped(model, scene))
+    stored = load_npz(shipped(case))
     assert sorted(fresh) == sorted(stored)
     for k in fresh:
         assert fresh[k].dtype == stored[k].dtype, k
         assert torch.equal(fresh[k], stored[k]), k
-    assert sum(v.numel() for k, v in stored.items()
-               if not k.endswith("num_batches_tracked")) == MODELS[model][1]
+    n_values = sum(v.numel() for k, v in stored.items()
+                   if not k.endswith("num_batches_tracked"))
+    assert n_values == CHECKPOINTS[case][1]
 
 
 @CASES
-def test_shipped_surfacenet_forward_matches_reference(reference, model,
-                                                      scene):
-    flax_model, variables = reference(model, scene)
+def test_shipped_surfacenet_forward_matches_reference(reference, case):
+    flax_model, variables = reference(case)
     x = np.random.default_rng(4).normal(0, 0.2, (2, 16, 16, 16, 6)).astype(
         np.float32)
     ref = np.asarray(jax.jit(
         lambda v, x: flax_model.apply(v, x, train=False))(
             variables, jnp.asarray(x)))
-    cfg = dataclasses.replace(widths(TModel, model), dtype="float32")
-    net = load_surfacenet(shipped(model, scene), cfg)
+    cfg = dataclasses.replace(widths(TModel, case), dtype="float32")
+    net = load_surfacenet(shipped(case), cfg)
     got = make_predictor(net, cfg, "cpu")(torch.tensor(x)).numpy()
     assert got.shape == (2, 16, 16, 16)
     assert np.abs(got - ref).max() <= 1e-4
@@ -149,19 +149,19 @@ def test_paper_bf16_forward_matches_reference_bf16(reference, tmp_path,
     with pytest.raises(Captured):
         cli.main(["reconstruct", "--scan", str(tmp_path / "scan"),
                   "--preset", "dtu9_paper", "--checkpoint",
-                  shipped("paper", "sphere"), "--out",
+                  shipped("paper-sphere"), "--out",
                   str(tmp_path / "x.ply"), "--device", "cpu",
                   "--set", "sweep.refine_calib=false",
                   "--set", "sweep.cube_batch=6"])
     monkeypatch.undo()
     x = batch["x"]
-    flax_model, variables = reference("paper", "sphere")
+    flax_model, variables = reference("paper-sphere")
     bf16_model = type(flax_model)(dataclasses.replace(flax_model.cfg,
                                                       dtype="bfloat16"))
     ref = np.asarray(jax.jit(
         lambda v, x: bf16_model.apply(v, x, train=False))(
             variables, jnp.asarray(x, jnp.bfloat16))).astype(np.float32)
-    net = load_surfacenet(shipped("paper", "sphere"), TModel())
+    net = load_surfacenet(shipped("paper-sphere"), TModel())
     got = make_predictor(net, TModel(), "cpu")(
         torch.tensor(x).to(torch.bfloat16)).float().numpy()
     a, b = got > 0.7, ref > 0.7
