@@ -55,10 +55,18 @@ both golden scenes, converted by the same recipe; ``cli reconstruct-all
 (``models/pairnet.py``): ``Conv`` kernels from HWIO to OIHW, not flipped
 (both frameworks correlate), and the ``Dense`` kernel transposed; its rows
 stay in the reference's (H, W, C) flatten order, which ``PairNet`` keeps.
-``weights_torch/pairnet_10000.npz`` is the shipped ``weights/pairnet_10000``
-converted so: ``restore_pairnet`` of ``surfacenet_tpu.train.train_pair``
-with the default ``Config()``, leaves to numpy, then
-``save_npz(pairnet_params_from_jax(v), path)``.
+``weights_torch/pairnet_10000.npz`` and ``weights_torch/pairnet_1500.npz``
+(899,614 bytes each: 224,384 float32 values) are the shipped
+``weights/pairnet_10000`` and ``weights/pairnet_1500`` converted so::
+
+    _, v = restore_pairnet("weights/pairnet_1500", Config())
+    # surfacenet_tpu.train.train_pair, the default Config()
+    v = jax.tree_util.tree_map(np.asarray, v)
+    save_npz(pairnet_params_from_jax(v), "weights_torch/pairnet_1500.npz")
+
+and load with ``train.train_pair.restore_pairnet(path, PairNetConfig())``
+(``cli reconstruct --pairnet path``).  ``results/occlusion_r05.json``
+compares the two nets (``learned_local/pairnet_1500`` and ``_10k``).
 """
 
 from __future__ import annotations

@@ -285,14 +285,29 @@ def test_cube_batch_step_consensus_matches_reference(scene, origins):
                  consensus_deadband=0.3)[0]) == mode
 
 
-@pytest.mark.parametrize("selector", ["learned_local", "geometric"])
-def test_run_sweep_learned_pairs_matches_reference(scene, nets, selector):
+@pytest.mark.parametrize("selector,fusion_kw", [
+    pytest.param("learned_local", {}, id="learned_local"),
+    pytest.param("geometric", {}, id="geometric"),
+    pytest.param("geometric", dict(fusion_mode="consensus",
+                                   consensus_deadband=0.1),
+                 id="consensus_db0.1"),
+    pytest.param("geometric", dict(fusion_mode="consensus",
+                                   consensus_deadband=0.3),
+                 id="consensus_db0.3"),
+    pytest.param("geometric", dict(pair_dist_sigma_frac=0.15),
+                 id="proximity"),
+])
+def test_run_sweep_learned_pairs_matches_reference(scene, nets, selector,
+                                                   fusion_kw):
     """The slice end to end: the occluded scene, the photoconsistency
     predictor, exact pooling and the learned-local selector with the
     shipped pair net in both packages (and the geometric selector beside
-    it): merged voxel sets agree on >= 0.999 of their union."""
+    it; with consensus fusion at deadbands 0.1 and 0.3, beta 8, and with
+    the proximity term ``pair_dist_sigma_frac=0.15``, as
+    ``results/occlusion_r04.json``'s rows): the same cubes, and merged
+    voxel sets that agree on >= 0.999 of their union."""
     model, variables, net = nets
-    jcfg, tcfg = _configs()
+    jcfg, tcfg = _configs(**fusion_kw)
     j_sel = t_sel = None
     if selector == "learned_local":
         kw = dict(n_pairs=3, image_hw=HW, extent_mm=EXTENT,

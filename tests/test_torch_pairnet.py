@@ -1,11 +1,12 @@
 """Port parity: the pair net, its converted weights, triplet sampling,
 training and the ``train-pairnet`` / ``reconstruct --pairnet`` CLI.
 
-The shipped ``weights/pairnet_10000`` (the reference's Orbax checkpoint)
-restores on the JAX side; ``weights_torch/pairnet_10000.npz`` is its
-conversion.  Bounds: embeddings within 1e-5; triplet batches bitwise;
-three training steps' parameter updates within 1e-4 of the reference's
-(relative, per tensor, in norm) and losses within 1e-5.
+The shipped ``weights/pairnet_10000`` and ``weights/pairnet_1500`` (the
+reference's Orbax checkpoints) restore on the JAX side;
+``weights_torch/pairnet_{10000,1500}.npz`` are their conversions.
+Bounds: embeddings within 1e-5; triplet batches bitwise; three training
+steps' parameter updates within 1e-4 of the reference's (relative, per
+tensor, in norm) and losses within 1e-5.
 """
 
 import dataclasses
@@ -47,15 +48,23 @@ def shipped():
                                                TConfig().pairnet)
 
 
-def test_shipped_npz_is_a_fresh_conversion(shipped):
-    _, variables, net = shipped
+@pytest.mark.parametrize("step", [10000, 1500],
+                         ids=["pairnet_10000", "pairnet_1500"])
+def test_shipped_npz_is_a_fresh_conversion(step):
+    """Each shipped ``weights_torch/pairnet_<step>.npz`` is its Orbax
+    ``weights/pairnet_<step>`` converted afresh, bitwise."""
+    _, variables = J.restore_pairnet(
+        os.path.join(ROOT, "weights", f"pairnet_{step}"), Config())
+    variables = jax.tree_util.tree_map(np.asarray, variables)
+    path = os.path.join(ROOT, "weights_torch", f"pairnet_{step}.npz")
     fresh = pairnet_params_from_jax(variables)
-    stored = load_npz(SHIPPED)
+    stored = load_npz(path)
     assert sorted(fresh) == sorted(stored)
     for k in fresh:
         assert fresh[k].dtype == stored[k].dtype == torch.float32
         assert torch.equal(fresh[k], stored[k]), k
     assert sum(v.numel() for v in stored.values()) == 224384
+    net = T.restore_pairnet(path, TConfig().pairnet)
     assert isinstance(net, PairNet) and not net.training
 
 
