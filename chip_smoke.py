@@ -299,13 +299,51 @@ the run with a non-zero exit code and no result line):
       unfused run's, points and metrics within 2%) and once more from 12
       PNGs through ``cli.main(["reconstruct", ..., "--pairnet", ...])``
       (reported: its images are quantised);
-  24. the result line.
+  24. trained calibration robustness: the calibration-robust path with
+      the JAX records' trained nets, ``cli.reconstruct_scan`` with
+      ``weights_torch/golden_sphere_30k.npz`` (bf16, unfused) at
+      ``OCC_SETS`` on the op-point sphere (12 views of 600x800, radius
+      30, focal 200, in memory) and its ``degrade_scene(clean, seed=1,
+      ...)`` copies: the 15 rows of ``results/robustness_r04.json``
+      (noise, exposure, white balance, clutter, calibration error and a
+      combined row; no prepass), then ``sweep.refine_calib=true`` on the
+      clean scene and at calibration errors of 0.5, 1 and 2 px
+      (``robustness_r05.json``, whose prepass-off rows are r04's), then
+      fixed tau 0.7 / 0.8 / 0.9 and the adaptive threshold at four target
+      densities on the sphere and (``golden_tori_30k``) on the tori
+      (``adaptive_r03.json``); every recorded accuracy, completeness,
+      overall mean and point count within 10% (ground truth
+      ``surface_points(8000)``, unclamped), the prepass-on rows also
+      within 10% of the JAX package's CPU rerun of them
+      (``results/robustness_r05_cpu.json``), which is held instead of a
+      TPU reading that it misses itself (reported beside); each
+      prepass-on scene also swept with the prepass off on the JAX
+      package's CPU-refined matrices (reported: the reference's prepass
+      with the card's sweep); fails unless the prepass
+      takes sigma 1's overall to <= 0.6x and sigma 2's to <= 0.8x of the
+      prepass-off run's, leaves the clean scene's within 3%, each scene's
+      best threshold is the record's, every run launched the gather
+      (bf16) and the vote (``tile``) once a batch and re-fetched no cube
+      densely,
+      and unless each prepass-on run's per-view shifts lie within 0.15 px
+      (or three times the reference's one-ulp spread above 0.05 px) of
+      the JAX package's CPU run in ``results/refine_degraded_parity.json``
+      with an RMS residual against the injected shifts within 0.05 px of
+      its; each prepass-on run's passes timed by pass and pyramid level
+      (synchronised at each boundary, ``prepass_clock``) with its Adam
+      steps; cubes, batches, cubes/s, ``refine_s`` and peak memory a run;
+      then the sigma 1 prepass-on run fused (11 ``wgmma`` + 1
+      ``halo_mma`` launches a forward, none ``wgmma_padded``; >= 0.99 of
+      the points within one voxel of the unfused run's, points within 2%)
+      and once more from 12 PNGs through ``cli.main(["reconstruct", ...,
+      "--set", "sweep.refine_calib=true", ...])`` (reported);
+  25. the result line.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  ``python3 chip_smoke.py --split-alone`` runs the
 build and phase 22 alone (its scenes rendered in process), and prints its
-readings, not the result line; ``--occlusion-alone`` does the same for
-phase 23.  Reads the shipped weights under
+readings, not the result line; ``--occlusion-alone`` and
+``--robustness-alone`` do the same for phases 23 and 24.  Reads the shipped weights under
 ``weights_torch/``.
 Writes only to a temporary directory and to the
 package's git-ignored build directory; its worker process and phase 18's
@@ -334,7 +372,7 @@ from surfacenet_tpu_torch.cli import reconstruct_scan
 from surfacenet_tpu_torch.config import Config, baseline_config
 from surfacenet_tpu_torch.data.dtu import Scan, load_scan, write_scan
 from surfacenet_tpu_torch.data.synthetic import (
-    make_occluded_scene, make_sphere_scene, make_tori_scene,
+    degrade_scene, make_occluded_scene, make_sphere_scene, make_tori_scene,
 )
 from surfacenet_tpu_torch.geometry.camera import project_rows
 from surfacenet_tpu_torch.models.convert import (
@@ -492,6 +530,48 @@ DEADBAND_RUNS = {(0.1, 8.0): "geometric_consensus",
                  (0.2, 8.0): "consensus_db0.2_b8",
                  (0.3, 8.0): "consensus_db0.3_b8",
                  (0.2, 16.0): "consensus_db0.2_b16"}
+# the JAX package's records of the calibration-robust path with the
+# trained paper-width nets at OCC_SETS on the op-point scenes (OP_SCENES,
+# in memory, float32): results/robustness_r04.json (scripts/
+# robustness_eval.py: degrade_scene(clean, seed=1, **kw) a row, no
+# prepass), robustness_r05.json (scripts/robustness_refine_eval.py: the
+# prepass off and on at each calibration level) and adaptive_r03.json
+# (scripts/adaptive_eval.py: fixed and adaptive thresholds on the sphere
+# and the tori); phase 24 holds the port to them within 10%
+ROB_AXES = {
+    "noise_std": (0.01, 0.02, 0.05),
+    "exposure_jitter": (0.1, 0.2, 0.4),
+    "wb_jitter": (0.05, 0.1),
+    "n_clutter": (4, 10),
+    "calib_sigma_px": (0.5, 1.0, 2.0),
+}
+ROB_COMBINED = dict(noise_std=0.01, exposure_jitter=0.15, wb_jitter=0.05,
+                    n_clutter=4, calib_sigma_px=0.5)
+# adaptive_r03's rows a scene: label -> --set arguments beyond OCC_SETS
+ADAPTIVE_RUNS = {
+    **{f"fixed tau={t}": (f"fusion.tau={t}",) for t in (0.7, 0.8, 0.9)},
+    **{f"adaptive dens={d}": ("fusion.tau=0.8",
+                              "fusion.adaptive_threshold=true",
+                              f"fusion.adaptive_target_density={d}")
+       for d in (0.005, 0.01, 0.02, 0.04)},
+}
+# the card's prepass shifts against the JAX package's CPU run of the same
+# scene (results/refine_degraded_parity.json, scripts/
+# refine_degraded_parity.py): per view and axis within PREPASS_BOUND_PX,
+# or three times the JAX run's own one-ulp spread where that exceeds
+# 0.05 px; the RMS residual against the injected shifts within 0.05 px
+PREPASS_BOUND_PX = 0.15
+PREPASS_RMS_PX = 0.05
+# robustness_r05's prepass-on TPU readings that the JAX package's own CPU
+# rerun of its recipe (results/robustness_r05_cpu.json, scripts/
+# robustness_refine_cpu.py) misses by more than OP_POINT_BAND: the TPU's
+# prepass ran another float order (ROADMAP C4, C5). Phase 24 holds these
+# to the rerun instead, and fails if the two files disagree with this list
+R05_SUPERSEDED = {("calib_sigma_px=1.0", True): ("comp_mm",)}
+# the card's sweep on the JAX package's CPU-refined matrices (prepass off)
+# against that rerun's row: the same matrices, so only the sweep's float
+# order differs (the prepass-off rows keep within 0.5% of their records)
+JAX_PREPASS_BAND = 0.02
 # the least share of the voxels above tau on which (c)'s card bf16 forward
 # and CPU float32 forward agree: 0.99 at fast64's 7 convs; 0.985 through
 # the paper width's 12, where no bf16 forward keeps 0.99 (on phase 21's
@@ -2323,6 +2403,465 @@ def trained_occlusion_phase(dev, tmp):
     return out, launches
 
 
+class prepass_clock:
+    """Within the block, each pass of the calibration prepass
+    (``geometry/refine.py::refine_calibration``) leaves in ``self.passes``
+    its seconds, its probe search's, each pyramid level's (its ``dx`` and
+    ``duv`` Adam phases) and its Adam steps, the card synchronised at each
+    boundary: the pass's start and end, the probes' end and each phase's
+    start (where ``refine_calibration`` makes its ``OptaxAdam``)."""
+
+    def __enter__(self):
+        import inspect
+
+        from surfacenet_tpu_torch.geometry import refine as R
+
+        self.mod, self.passes, clock = R, [], self
+        self.real = (R.refine_calibration, R.photometric_probes, R.OptaxAdam)
+        levels = inspect.signature(R.refine_calibration).parameters[
+            "levels"].default
+
+        def mark():
+            torch.cuda.synchronize()
+            return time.perf_counter()
+
+        def refine_calibration(*args, **kw):
+            p = {"levels": tuple(kw.get("levels", levels)), "start": mark(),
+                 "phases": [], "opts": []}
+            clock.passes.append(p)
+            out = clock.real[0](*args, **kw)
+            p["end"] = mark()
+            return out
+
+        def photometric_probes(*args, **kw):
+            out = clock.real[1](*args, **kw)
+            clock.passes[-1]["probes_end"] = mark()
+            return out
+
+        class Adam(clock.real[2]):
+            def __init__(self, *args, **kw):
+                clock.passes[-1]["phases"].append(mark())
+                clock.passes[-1]["opts"].append(self)
+                super().__init__(*args, **kw)
+
+        R.refine_calibration, R.photometric_probes, R.OptaxAdam = (
+            refine_calibration, photometric_probes, Adam)
+        return self
+
+    def __exit__(self, *exc):
+        (self.mod.refine_calibration, self.mod.photometric_probes,
+         self.mod.OptaxAdam) = self.real
+
+    def readings(self):
+        """A list, one reading a pass: seconds, probes' seconds, seconds a
+        level ({factor: s}, two Adam phases each), Adam steps, seconds a
+        step over the phases."""
+        out = []
+        for p in self.passes:
+            bounds = p["phases"] + [p["end"]]
+            phase_s = [b - a for a, b in zip(bounds, bounds[1:])]
+            steps = sum(o.count for o in p["opts"])
+            out.append({
+                "s": p["end"] - p["start"],
+                "probes_s": p["probes_end"] - p["start"],
+                "level_s": {str(lv): phase_s[2 * i] + phase_s[2 * i + 1]
+                            for i, lv in enumerate(p["levels"])},
+                "adam_steps": steps,
+                "s_per_step": sum(phase_s) / max(steps, 1)})
+        return out
+
+
+def prepass_ranges(runs):
+    """[least, most] of each ``prepass_clock`` reading over the passes of
+    ``runs`` (phase 24's prepass-on runs), and of their ``refine_s``."""
+    passes = [p for r in runs for p in r["prepass"]["by_pass"]]
+
+    def span(xs):
+        return [min(xs), max(xs)]
+
+    return {"runs": len(runs), "passes": len(passes),
+            "pass_s": span([p["s"] for p in passes]),
+            "probes_s": span([p["probes_s"] for p in passes]),
+            "level_s": span([s for p in passes for s in p["level_s"].values()]),
+            "s_per_step": span([p["s_per_step"] for p in passes]),
+            "refine_s": span([r["refine_s"] for r in runs])}
+
+
+def rms_residual(duv, true):
+    """RMS over views and axes of a prepass's correction plus the
+    injected shift, the common shift removed (the prepass centres its
+    shifts), as ``scripts/refine_degraded_parity.py`` computes it."""
+    r = np.asarray(duv, np.float64) + true
+    return float(np.sqrt(((r - r.mean(0)) ** 2).mean()))
+
+
+# keys of a phase's readings that hold a record's or the JAX package's
+# values, or a gate's limit: logged beside the card's readings, and kept
+# out of the kernels line, which carries only what this run measured
+NOT_MEASURED = ("record", "records", "bound_px", "at_most", "within")
+NOT_MEASURED_PREFIXES = ("jax_", "injected_")
+
+
+def card_readings(obj):
+    """``obj`` without the ``NOT_MEASURED`` keys, at any depth."""
+    if isinstance(obj, dict):
+        return {k: card_readings(v) for k, v in obj.items()
+                if k not in NOT_MEASURED
+                and not k.startswith(NOT_MEASURED_PREFIXES)}
+    if isinstance(obj, list):
+        return [card_readings(v) for v in obj]
+    return obj
+
+
+def robustness_records():
+    """The rows ``trained_robustness_phase`` holds: ({record: {scene:
+    {(label, refine): row}}}, adaptive_r03's best label a scene).
+    robustness_r05's prepass-on rows are a TPU's readings;
+    ``robustness_r05_cpu`` is the JAX package's own rerun of them on the
+    CPU (``scripts/robustness_refine_cpu.py``).  Where that rerun lies
+    outside ``OP_POINT_BAND`` of a TPU reading, the prepass's float order
+    (ROADMAP C4) moved the reference itself: the CPU reading is held
+    there and the TPU's reported beside it.  Those readings are
+    ``R05_SUPERSEDED``; raises if the files show others."""
+    def load(name):
+        with open(os.path.join(RESULTS, name)) as f:
+            return json.load(f)
+
+    r04, r05, r05_cpu, ada = (load(f"{n}.json") for n in (
+        "robustness_r04", "robustness_r05", "robustness_r05_cpu",
+        "adaptive_r03"))
+    rows = {
+        "robustness_r04": {"sphere": {(r["label"], False): r
+                                      for r in r04["rows"]}},
+        "robustness_r05": {"sphere": {(r["label"], r["refine"]): r
+                                      for r in r05["rows"]}},
+        "robustness_r05_cpu": {"sphere": {(r["label"], True): r
+                                          for r in r05_cpu["rows"]}},
+        "adaptive_r03": {s: {(r["label"], False): r for r in ada[s]["rows"]}
+                         for s in ("sphere", "tori")},
+    }
+    tpu = rows["robustness_r05"]["sphere"]
+    superseded = {
+        k: tuple(key for key in ("acc_mm", "comp_mm", "overall_mm", "n_pts")
+                 if not within(cpu[key], tpu[k][key]))
+        for k, cpu in rows["robustness_r05_cpu"]["sphere"].items()}
+    superseded = {k: v for k, v in superseded.items() if v}
+    if superseded != R05_SUPERSEDED:
+        raise RuntimeError(f"trained robustness: robustness_r05_cpu.json "
+                           f"misses robustness_r05.json's TPU readings "
+                           f"{superseded}, not R05_SUPERSEDED "
+                           f"{R05_SUPERSEDED}")
+    return rows, {s: ada[s]["best"]["label"] for s in ("sphere", "tori")}
+
+
+def robustness_claims(runs, adaptive, best_want, misses):
+    """The records' claims on the card: the prepass takes sigma 1's
+    overall mean to <= 0.6x and sigma 2's to <= 0.8x of the prepass-off
+    run's and leaves the clean scene's within 3%; each scene's best
+    threshold is adaptive_r03's.  Returns the readings; each claim that
+    fails adds a line to ``misses``."""
+    def overall(key):
+        return runs[key]["overall_mm"]
+
+    claims = {}
+    for sigma, most in (("1.0", 0.6), ("2.0", 0.8)):
+        k = f"calib_sigma_px={sigma}"
+        r = overall(f"{k} refine=True") / overall(f"{k} refine=False")
+        claims[f"refine_ratio_sigma{sigma}"] = {"got": r, "at_most": most}
+        if r > most:
+            misses.append(f"the prepass takes sigma {sigma}'s overall to "
+                          f"{r:.4f}x of the prepass-off run's (at most "
+                          f"{most}x)")
+    r = overall("clean refine=True") / overall("clean refine=False")
+    claims["refine_ratio_clean"] = {"got": r, "within": 0.03}
+    if abs(r - 1.0) > 0.03:
+        misses.append(f"the prepass moves the clean scene's overall by "
+                      f"{r:.4f}x (within 3%)")
+    for scene, want in best_want.items():
+        got = min(adaptive[scene], key=lambda k: adaptive[scene][k][
+            "overall_mm"])
+        claims[f"best_{scene}"] = {"got": got, "record": want}
+        if got != want:
+            misses.append(f"{scene}: the card's best threshold is {got!r}, "
+                          f"the record's {want!r}")
+    log(f"trained robustness claims {json.dumps(claims)}")
+    return claims
+
+
+def trained_robustness_phase(dev, tmp):
+    """Phase 24: the calibration-robust path with the records' trained
+    nets: ``cli.reconstruct_scan`` with the paper-width
+    ``weights_torch/golden_sphere_30k.npz`` (bf16, unfused) at
+    ``OCC_SETS`` on the op-point sphere and its ``degrade_scene`` copies
+    (``seed=1``), once a row of robustness_r04 (prepass off), once more
+    with ``sweep.refine_calib=true`` on the clean scene and at each
+    calibration level (robustness_r05), the thresholds of adaptive_r03 on
+    the sphere and (``golden_tori_30k``) on the tori; every recorded
+    reading held within 10% (``robustness_records``: where the JAX
+    package's CPU rerun of a prepass-on row misses the TPU's reading, the
+    rerun's), the records' claims on the card, the
+    prepass's shifts held to the JAX package's CPU run
+    (``results/refine_degraded_parity.json``) and timed by pass and
+    level; then the sigma 1 prepass-on run fused, held to the unfused
+    one, and once from 12 PNGs through ``cli reconstruct`` (reported).
+    Returns the readings and each run's kernel launches."""
+    rows_want, best_want = robustness_records()
+    out_superseded = {f"{label} refine={r}": list(keys)
+                      for (label, r), keys in R05_SUPERSEDED.items()}
+    with open(os.path.join(RESULTS, "refine_degraded_parity.json")) as f:
+        parity = json.load(f)["sigmas"]
+    base = cli._apply_overrides(Config(), list(OCC_SETS))
+    fused_cfg = cli._apply_overrides(base, ["model.fused_inference=true"])
+    refine_set = "sweep.refine_calib=true"
+    predictors = {
+        (scene, c.model.fused_inference): make_predictor(
+            load_surfacenet(TRAINED_PAPER.format(scene=scene), c.model),
+            c.model, dev)
+        for scene, c in (("sphere", base), ("sphere", fused_cfg),
+                         ("tori", base))}
+    t0 = time.perf_counter()
+    clean = {k: make(**kw) for k, (make, kw) in OP_SCENES.items()}
+    degraded = {"clean": clean["sphere"]}
+    for axis, levels in ROB_AXES.items():
+        for lv in levels:
+            degraded[f"{axis}={lv}"] = degrade_scene(
+                clean["sphere"], seed=1, **{axis: lv})
+    degraded["combined_dtu_like"] = degrade_scene(clean["sphere"], seed=1,
+                                                  **ROB_COMBINED)
+    truth = {k: sc.surface_points(8000) for k, sc in clean.items()}
+    out = {"scene_s": time.perf_counter() - t0, "runs": {}, "claims": {},
+           "tpu_readings_superseded": out_superseded}
+    log(f"trained robustness: the TPU readings of robustness_r05 that the "
+        f"JAX package's CPU rerun misses, reported beside its held "
+        f"readings: {json.dumps(out_superseded)}")
+    launches = {}
+
+    def sweep(sc, scene, label, cfg):
+        """One run through ``cli.reconstruct_scan``: (readings, points)."""
+        scan = Scan(sc.images, sc.Ps, sc.bbox_min, sc.bbox_max, scene)
+        ply = f"{tmp}/rob24_{len(launches)}.ply"
+        reset_counts()
+        t0 = time.perf_counter()
+        with split_scans() as ss, prepass_clock() as clock:
+            n, st, tm = cli.reconstruct_scan(
+                scan, cfg, predictors[scene, cfg.model.fused_inference], ply,
+                dev)
+        wall = time.perf_counter() - t0
+        rec = ss.runs[0]
+        pts = read_ply(ply)[0]
+        run = {"points": n, "cubes": st.n_cubes_after_prefilter,
+               "nonempty": st.n_cubes_nonempty, "batches": st.n_batches,
+               "dense_dispatches": rec["dense_dispatches"],
+               "cubes_per_s": st.n_cubes_after_prefilter / st.sweep_s,
+               "refine_s": st.refine_s, "stages": tm,
+               "peak_mem_gb": rec["peak_mem_gb"], "wall_s": wall,
+               "launches": rec["launches"]}
+        if cfg.sweep.refine_calib:
+            info = st.refine_info
+            run["prepass"] = {
+                "passes": info["passes"],
+                "pass_kinds": info.get("pass_kinds", ["default"]),
+                "max_shift_px": info["max_shift_px"],
+                "duv_px": np.asarray(info["duv_px"]).round(4).tolist(),
+                "by_pass": clock.readings()}
+        run.update(occlusion_metrics(pts, truth[scene], None, None, dev))
+        name = f"trained robustness {scene} {label}"
+        launches[f"{scene}/{label}"] = rec["launches"]
+        if rec["dense_dispatches"]:
+            raise RuntimeError(f"{name}: {rec['dense_dispatches']} dense "
+                               f"re-fetches (the records' scenes need none)")
+        check_sweep_launches(name, rec["launches"], st.n_batches,
+                             st.n_batches)
+        if n <= 0 or len(pts) != n or not np.isfinite(pts).all():
+            raise RuntimeError(f"{name}: wrote {n} points ({len(pts)} read)")
+        return run, pts
+
+    misses = []  # every failed gate of the phase, raised at its end
+
+    def hold(scene, label, refine, run):
+        """Every record's row of (label, refine) on ``scene``, held."""
+        for record, scenes in rows_want.items():
+            want = scenes.get(scene, {}).get((label, refine))
+            if want is None:
+                continue
+            run.setdefault("records", {})[record] = want
+            for key in ("acc_mm", "comp_mm", "overall_mm", "n_pts"):
+                if (record == "robustness_r05"
+                        and key in R05_SUPERSEDED.get((label, refine), ())):
+                    continue  # the reference's CPU rerun is held instead
+                if not within(run[key], want[key]):
+                    misses.append(f"{scene} {label} refine={refine}: {key} "
+                                  f"{run[key]} is not within "
+                                  f"{OP_POINT_BAND:.0%} of {record}'s "
+                                  f"{want[key]}")
+
+    def sigma_key(label):
+        """The parity record's key of a prepass-on scene."""
+        return "0.0" if label == "clean" else label.split("=")[1]
+
+    def prepass_parity(label, run):
+        """The card's shifts against the JAX package's CPU run."""
+        want = parity[sigma_key(label)]
+        true = np.asarray(want["injected_px"], np.float64)
+        got = np.asarray(run["prepass"]["duv_px"], np.float64)
+        spread = want["jax_one_ulp_spread_px"]
+        bound = max(PREPASS_BOUND_PX, 3 * spread if spread > 0.05 else 0.0)
+        rms = rms_residual(got, true)
+        pp = run["prepass"]["parity"] = {
+            "max_view_diff_px": float(np.abs(
+                got - np.asarray(want["jax"]["duv_px"])).max()),
+            "bound_px": bound, "jax_one_ulp_spread_px": spread,
+            "rms_residual_px": rms,
+            "jax_rms_residual_px": want["jax"]["rms_residual_px"],
+            "injected_rms_px": want["injected_rms_px"],
+            "passes": run["prepass"]["passes"],
+            "jax_passes": want["jax"]["passes"]}
+        log(f"trained robustness prepass {label} against the JAX package: "
+            f"{json.dumps(pp)}")
+        if pp["max_view_diff_px"] > bound:
+            misses.append(f"{label}: the prepass's shifts differ from the "
+                          f"JAX run's by {pp['max_view_diff_px']} px (bound "
+                          f"{bound})")
+        if abs(rms - pp["jax_rms_residual_px"]) > PREPASS_RMS_PX:
+            misses.append(f"{label}: the prepass's RMS residual {rms} px "
+                          f"against the JAX run's "
+                          f"{pp['jax_rms_residual_px']}")
+
+    # robustness_r04 (and r05's prepass-off rows): prepass off; then r05's
+    # prepass-on rows
+    runs = out["runs"]["sphere"] = {}
+    for refine in (False, True):
+        for label, sc in degraded.items():
+            if refine and not (label == "clean"
+                               or label.startswith("calib_sigma_px=")):
+                continue
+            key = f"{label} refine={refine}"
+            cfg = cli._apply_overrides(base, [refine_set] if refine else [])
+            run, pts = sweep(sc, "sphere", key, cfg)
+            if key == "calib_sigma_px=1.0 refine=True":
+                pa = pts  # the fused and PNG runs' reference
+            hold("sphere", label, refine, run)
+            if key == "clean refine=False":  # adaptive_r03's tau 0.7 too
+                hold("sphere", "fixed tau=0.7", False, run)
+            if refine:
+                prepass_parity(label, run)
+            runs[key] = run
+            log(f"trained robustness sphere {key} {json.dumps(run)}")
+            if refine:
+                # the JAX package's prepass (its CPU run's matrices) with
+                # the card's sweep, prepass off: tells the prepass from
+                # the sweep; held to the JAX package's CPU rerun of the
+                # row, whose prepass made these matrices
+                ref = dataclasses.replace(sc, Ps=np.asarray(
+                    parity[sigma_key(label)]["jax"]["Ps_refined"],
+                    np.float32))
+                jr, _ = sweep(ref, "sphere", f"{label} jax_prepass", base)
+                want = rows_want["robustness_r05_cpu"]["sphere"][label, True]
+                runs[f"{label} jax_prepass"] = jr
+                log(f"trained robustness sphere {label} on the JAX "
+                    f"package's refined matrices {json.dumps(jr)}, the JAX "
+                    f"package's CPU rerun {json.dumps(want)}")
+                for k in ("acc_mm", "comp_mm", "overall_mm", "n_pts"):
+                    if not within(jr[k], want[k], JAX_PREPASS_BAND):
+                        misses.append(
+                            f"sphere {label} on the JAX package's refined "
+                            f"matrices: {k} {jr[k]} is not within "
+                            f"{JAX_PREPASS_BAND:.0%} of its CPU rerun's "
+                            f"{want[k]}")
+
+    # adaptive_r03: tau 0.7 on the sphere is r04's clean run
+    adaptive = out["runs"]["adaptive"] = {"sphere": {}, "tori": {}}
+    adaptive["sphere"]["fixed tau=0.7"] = runs["clean refine=False"]
+    for scene in ("sphere", "tori"):
+        sc = clean[scene]
+        for label, sets in ADAPTIVE_RUNS.items():
+            if label in adaptive[scene]:
+                continue
+            run, _ = sweep(sc, scene, label,
+                           cli._apply_overrides(base, list(sets)))
+            hold(scene, label, False, run)
+            adaptive[scene][label] = run
+            log(f"trained robustness {scene} {label} {json.dumps(run)}")
+
+    out["claims"] = robustness_claims(runs, adaptive, best_want, misses)
+
+    # the sigma 1 prepass-on run fused: the conv kernel on its two live
+    # routes, one forward a dispatch; within one voxel and 2% of unfused
+    label, sc = "calib_sigma_px=1.0", degraded["calib_sigma_px=1.0"]
+    a = runs[f"{label} refine=True"]
+    fused, pf = sweep(sc, "sphere", f"fused {label} refine=True",
+                      cli._apply_overrides(fused_cfg, [refine_set]))
+    fused["voxel_agreement"] = voxel_set_agreement(pf, pa)
+    fused["one_voxel_agreement"] = one_voxel_agreement(
+        pf, pa, base.voxel.voxel_size_mm)
+    fused["prepass_max_diff_px"] = float(np.abs(
+        np.asarray(fused["prepass"]["duv_px"])
+        - np.asarray(a["prepass"]["duv_px"])).max())
+    out["fused"] = fused
+    log(f"trained robustness fused {label} refine=True {json.dumps(fused)}")
+    n_layers = len(conv_layers(base.model, base.voxel.cube_size))
+    dispatches = fused["batches"] + fused["dense_dispatches"]
+    check_fused_routes("the fused robustness run", base, fused["launches"],
+                       dispatches)
+    if fused["launches"]["conv3d"] != n_layers * dispatches:
+        raise RuntimeError(f"the fused robustness run: "
+                           f"{fused['launches']['conv3d']} conv launches in "
+                           f"{dispatches} forwards")
+    if (fused["one_voxel_agreement"] < 0.99
+            or not within(fused["n_pts"], a["n_pts"], 0.02)):
+        misses.append(f"the fused run differs from the unfused one: one "
+                      f"voxel {fused['one_voxel_agreement']}, points "
+                      f"{fused['n_pts']} against {a['n_pts']}")
+
+    # the same scene from 12 PNGs through cli reconstruct with the prepass
+    # (reported: the images are quantised to 8 bits, the record's were not)
+    scan_dir, ply = f"{tmp}/rob24_scan", f"{tmp}/rob24_png.ply"
+    t0 = time.perf_counter()
+    write_scan(scan_dir, sc.images, sc.Ps, sc.bbox_min, sc.bbox_max)
+    write_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    with split_scans() as ss, prepass_clock() as clock:
+        n, st, tm = cli.main([
+            "reconstruct", "--scan", scan_dir, "--out", ply, "--checkpoint",
+            TRAINED_PAPER.format(scene="sphere"), "--set", refine_set,
+            *(arg for kv in OCC_SETS for arg in ("--set", kv))])
+    png = {"points": n, "batches": st.n_batches,
+           "cubes": st.n_cubes_after_prefilter,
+           "cubes_per_s": st.n_cubes_after_prefilter / st.sweep_s,
+           "refine_s": st.refine_s, "stages": tm, "write_s": write_s,
+           "wall_s": time.perf_counter() - t0,
+           "peak_mem_gb": ss.runs[0]["peak_mem_gb"],
+           "dense_dispatches": ss.runs[0]["dense_dispatches"],
+           "launches": ss.runs[0]["launches"],
+           "prepass": {"passes": st.refine_info["passes"],
+                       "max_shift_px": st.refine_info["max_shift_px"],
+                       "by_pass": clock.readings()}}
+    pp = read_ply(ply)[0]
+    png.update(occlusion_metrics(pp, truth["sphere"], None, None, dev))
+    png["voxel_agreement_in_memory"] = voxel_set_agreement(pp, pa)
+    png["record"] = a.get("records", {}).get("robustness_r05")
+    launches["sphere/png"] = png["launches"]
+    out["png"] = png
+    log(f"trained robustness {label} from PNGs {json.dumps(png)}")
+    check_sweep_launches("trained robustness from PNGs", png["launches"],
+                         st.n_batches, st.n_batches + png["dense_dispatches"])
+    if png["dense_dispatches"]:
+        misses.append(f"from PNGs: {png['dense_dispatches']} dense "
+                      f"re-fetches")
+    if n <= 0:
+        misses.append("from PNGs: no points")
+    unfused = [r for k, r in runs.items() if k.endswith(" refine=True")]
+    out["prepass_times"] = {
+        "unfused": prepass_ranges(unfused),
+        "with_fused_and_png": prepass_ranges(unfused + [fused, png])}
+    log(f"trained robustness prepass times "
+        f"{json.dumps(out['prepass_times'])}")
+    if misses:
+        raise RuntimeError("trained robustness: " + "; ".join(misses))
+    return out, launches
+
+
 def rank_job(path) -> int:
     """One rank of phase 18, ``python3 chip_smoke.py --rank-job JOB``:
     started with the torchrun environment by ``launch_local``; runs the
@@ -2756,10 +3295,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--rank-job"]:
         return rank_job(sys.argv[2])
-    if sys.argv[1:] == ["--split-alone"]:
-        return split_alone()
-    if sys.argv[1:] == ["--occlusion-alone"]:
-        return occlusion_alone()
+    if len(sys.argv) == 2 and sys.argv[1] in ALONE:
+        return alone(*ALONE[sys.argv[1]])
     # one worker process renders phase 17's tori on the host while the
     # card runs phases 4-16; leaving the block terminates it
     with multiprocessing.get_context("spawn").Pool(1, os.nice,
@@ -2777,42 +3314,41 @@ def card_line():
     return smi.stdout.strip().splitlines()[0]
 
 
-def split_alone() -> int:
-    """``python3 chip_smoke.py --split-alone``: the build, the op-point
-    scenes, then phase 22 by itself, with no other phase's work before it
-    on the card or the host; prints its readings as one JSON line."""
+def write_op_point_scenes(tmp):
+    """Phase 22's input: the op-point scenes written as scans in ``tmp``."""
+    scenes = {k: make(**kw) for k, (make, kw) in OP_SCENES.items()}
+    log(f"op-point scenes written in "
+        f"{json.dumps(write_op_scenes(tmp, scenes))} s")
+
+
+def alone(name, phase_fn, prepare=None) -> int:
+    """``python3 chip_smoke.py --split-alone`` (or ``--occlusion-alone``,
+    ``--robustness-alone``, ``ALONE``): the build, then that phase by
+    itself, with no other phase's work before it on the card or the host
+    (``prepare`` writes its inputs into the temporary directory first);
+    prints its readings as one JSON line."""
     log(card_line())
     log(f"kernels built in {_build.build_all():.2f} s; native merge and "
         f"denoise {os.path.basename(native.build())}")
     with tempfile.TemporaryDirectory() as tmp:
-        scenes = {k: make(**kw) for k, (make, kw) in OP_SCENES.items()}
-        log(f"op-point scenes written in "
-            f"{json.dumps(write_op_scenes(tmp, scenes))} s")
-        del scenes
+        if prepare is not None:
+            prepare(tmp)
         t0 = time.perf_counter()
-        out, launches = trained_split_phase(torch.device("cuda", 0), tmp)
+        out, launches = phase_fn(torch.device("cuda", 0), tmp)
         out["wall_s"] = time.perf_counter() - t0
-    log(f"trained split phase {out['wall_s']:.1f} s")
-    print(json.dumps({"trained_split": out, "launches": launches}),
-          flush=True)
+    log(f"{name.replace('_', ' ')} phase {out['wall_s']:.1f} s")
+    print(json.dumps({name: out, "launches": launches}), flush=True)
     return 0
 
 
-def occlusion_alone() -> int:
-    """``python3 chip_smoke.py --occlusion-alone``: the build, then phase
-    23 by itself (its scenes rendered in process); prints its readings as
-    one JSON line."""
-    log(card_line())
-    log(f"kernels built in {_build.build_all():.2f} s; native merge and "
-        f"denoise {os.path.basename(native.build())}")
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        out, launches = trained_occlusion_phase(torch.device("cuda", 0), tmp)
-        out["wall_s"] = time.perf_counter() - t0
-    log(f"trained occlusion phase {out['wall_s']:.1f} s")
-    print(json.dumps({"trained_occlusion": out, "launches": launches}),
-          flush=True)
-    return 0
+# the flags that run one phase alone: (its readings' name, the phase, what
+# it needs written first)
+ALONE = {
+    "--split-alone": ("trained_split", trained_split_phase,
+                      write_op_point_scenes),
+    "--occlusion-alone": ("trained_occlusion", trained_occlusion_phase),
+    "--robustness-alone": ("trained_robustness", trained_robustness_phase),
+}
 
 
 def run(pool) -> int:
@@ -3551,6 +4087,19 @@ def run(pool) -> int:
     occ_tr["wall_s"] = time.perf_counter() - t0
     log(f"trained occlusion phase {occ_tr['wall_s']:.1f} s")
 
+    phase(24, "trained calibration robustness: reconstruct_scan with "
+          "weights_torch/golden_{sphere,tori}_30k.npz on the op-point "
+          "scenes and their degrade_scene copies (results/robustness_r04"
+          ".json's 15 rows, robustness_r05.json's prepass off and on, "
+          "adaptive_r03.json's 7 thresholds a scene) against the records, "
+          "the prepass against the JAX package's CPU run, the sigma 1 "
+          "prepass-on run fused and from PNGs")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rob_tr, rob_tr_launches = trained_robustness_phase(dev, tmp.name)
+    rob_tr["wall_s"] = time.perf_counter() - t0
+    log(f"trained robustness phase {rob_tr['wall_s']:.1f} s")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -3572,16 +4121,19 @@ def run(pool) -> int:
             "sharded": sharded,
             "trained_path_launches": {
                 k: trained_launches[k]["warp_gather"] for k in sweeps},
-            "trained": trained,
+            "trained": card_readings(trained),
             "trained_paper_path_launches": {
                 k: paper_launches[k]["warp_gather"] for k in paper_sweeps},
-            "trained_paper": paper_tr,
+            "trained_paper": card_readings(paper_tr),
             "trained_split_path_launches": {
                 k: split_tr_launches[k]["warp_gather"] for k in split_sweeps},
-            "trained_split": split_tr,
+            "trained_split": card_readings(split_tr),
             "trained_occlusion_path_launches": {
                 k: v["warp_gather"] for k, v in occ_tr_launches.items()},
-            "trained_occlusion": occ_tr,
+            "trained_occlusion": card_readings(occ_tr),
+            "trained_robustness_path_launches": {
+                k: v["warp_gather"] for k, v in rob_tr_launches.items()},
+            "trained_robustness": card_readings(rob_tr),
             "bench_path_launches": bench_launches["warp_gather_bf16"],
             "bench": bench_out,
         },
@@ -3611,6 +4163,8 @@ def run(pool) -> int:
                 k: split_tr_launches[k]["affine_vote"] for k in split_sweeps},
             "trained_occlusion_path_launches": {
                 k: v["affine_vote"] for k, v in occ_tr_launches.items()},
+            "trained_robustness_path_launches": {
+                k: v["affine_vote"] for k, v in rob_tr_launches.items()},
             "bench_path_launches": bench_launches["affine_vote"],
             "bench_route_launches": bench_launches["affine_vote_routes"],
         },
@@ -3634,6 +4188,9 @@ def run(pool) -> int:
                           "export_loaded")},
             "trained_occlusion_path_launches": {
                 "occluded/fused": occ_tr_launches["occluded/fused"]["conv3d"]},
+            "trained_robustness_path_launches": {
+                k: v["conv3d"] for k, v in rob_tr_launches.items()
+                if k.startswith("sphere/fused")},
             "max_abs_err": max(layer["max_abs_err"] for layer in layers),
             # one forward: the seven layers' sums
             "ms": conv_ms,
@@ -3677,7 +4234,7 @@ def run(pool) -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(24, "result")
+    phase(25, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
