@@ -337,13 +337,49 @@ the run with a non-zero exit code and no result line):
       the points within one voxel of the unfused run's, points within 2%)
       and once more from 12 PNGs through ``cli.main(["reconstruct", ...,
       "--set", "sweep.refine_calib=true", ...])`` (reported);
-  25. the result line.
+  25. training from scratch: the two arms of
+      ``results/robustness_aug_r04.json`` (``scripts/calib_aug_eval.py
+      6000``), each trained on the card by ``train_surfacenet`` with
+      ``Config()`` at ``OCC_SETS`` plus ``AUG_TRAIN_SETS`` (the paper's
+      widths in bf16 on float32 masters, 32^3 cubes of 0.5 mm, batch 16,
+      6,000 steps in chunks of 250 on the scan path, cosine lr, seed 0)
+      on ``OCC_SCENES["clean"]``, ``train.aug_calib_sigma_px`` 0 and 0.7:
+      warm ms a step from CUDA events around each chunk, steps/s, cubes/s,
+      the wall seconds beside the events' sum, peak memory and the losses
+      at the record's log points; fails unless each arm gives 6,000 finite
+      losses, launches the training gather (bf16 entry) once a step, and
+      its last 250 losses average below its first 250, and unless the
+      augmented arm's last 250 average above the clean arm's; each net
+      saved by ``save_checkpoint``, loaded by ``load_surfacenet`` and swept
+      through ``cli.reconstruct_scan`` on the clean scene and its
+      ``degrade_scene(calib_sigma_px=sigma, seed=1)`` copies at sigma 0.5,
+      1 and 2, and on the clean scene once more from the trained model in
+      memory (fails unless its points equal the checkpoint's); every
+      recorded overall mean and point count within 25% (``AUG_BAND``:
+      the port's random draws are not the JAX package's) but the readings
+      ``AUG_SEED_SPREAD`` names (training noise: they left the band in one
+      of the port's own trainings from several seeds, whose range, widened
+      by 10%, holds the record; this run's reading must lie in that range
+      too), the record's claims on every reading (``aug_misses``), one
+      bf16 gather and one
+      ``tile`` vote a batch and no dense re-fetch; then the clean-trained
+      net fused (11 ``wgmma`` + 1 ``halo_mma`` launches a forward, none
+      ``wgmma_padded``; >= 0.99 of the points within one voxel of the
+      unfused run's, points within 2%) and from 12 PNGs through
+      ``cli.main(["reconstruct", ..., "--checkpoint", ...])`` (reported);
+  26. the result line.
+
+Phases 15, 17 and 18 run the refinement prepass, where their presets
+turn it on, at a quarter of its Adam steps a level (``PREPASS_CUT``), to
+keep the script inside its time limit.
 
 Needs one NVIDIA card (Hopper: the kernels are built for sm_90a); exits
 non-zero without one.  ``python3 chip_smoke.py --split-alone`` runs the
 build and phase 22 alone (its scenes rendered in process), and prints its
-readings, not the result line; ``--occlusion-alone`` and
-``--robustness-alone`` do the same for phases 23 and 24.  Reads the shipped weights under
+readings, not the result line; ``--occlusion-alone``,
+``--robustness-alone`` and ``--training-alone [--train-seed N]`` do the
+same for phases 23, 24 and 25 (``--train-seed`` trains both arms from
+``train.seed`` N instead of 0).  Reads the shipped weights under
 ``weights_torch/``.
 Writes only to a temporary directory and to the
 package's git-ignored build directory; its worker process and phase 18's
@@ -353,6 +389,7 @@ two rank processes end before the script does.  Needs no PIL.
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import multiprocessing
@@ -572,6 +609,60 @@ R05_SUPERSEDED = {("calib_sigma_px=1.0", True): ("comp_mm",)}
 # against that rerun's row: the same matrices, so only the sweep's float
 # order differs (the prepass-off rows keep within 0.5% of their records)
 JAX_PREPASS_BAND = 0.02
+# the JAX package's record of training from scratch (results/
+# robustness_aug_r04.json, scripts/calib_aug_eval.py 6000): two arms of
+# ModelConfig() trained at OCC_SETS plus AUG_TRAIN_SETS (train.seed 0) on
+# OCC_SCENES["clean"], calibration augmentation off and on (AUG_ARMS),
+# each net swept on that scene and its degrade_scene(calib_sigma_px=
+# sigma, seed=1) copies; phase 25 trains both on the card and holds each
+# row's overall mean and points within AUG_BAND, wider than
+# OP_POINT_BAND: the port's trainer draws other random numbers than the
+# JAX package's, so the two see other batches from the first step
+AUG_TRAIN_SETS = ("train.batch_size=16", "train.n_steps=6000",
+                  'train.lr_decay="cosine"', "train.scan_chunk=250")
+AUG_ARMS = {"clean_trained": 0.0, "aug_trained": 0.7}
+AUG_SIGMAS = (0.0, 0.5, 1.0, 2.0)
+AUG_BAND = 0.25
+# robustness_aug_r04's readings that left AUG_BAND in one of the card's
+# trainings at the phase's seed (0) since the C10 repair, with every
+# reading of the port's trainings observed (NVIDIA H100 80GB HBM3, 700 W):
+# `--training-alone --train-seed 0 / 1 / 2`, three full runs at seed 0
+# (training on the card is not bitwise repeatable: each run is a fresh
+# draw of its seed), then seeds 3 / 4 / 5 and 6 / 7 alone, in that order.
+# The port's random draws are not the JAX package's, so each run is
+# another draw of the record's recipe; seeds 0 and 3 train nets that fire
+# off the surface.  (arm, sigma) -> {key: those runs' readings}.  Such a
+# reading is held, instead of AUG_BAND, to the runs' range widened by
+# AUG_SEED_WIDEN: this run's reading must lie in it, and so must the
+# record's, else the miss is not training noise.  The claims hold every
+# reading
+AUG_SEED_SPREAD = {
+    ("clean_trained", 2.0): {"n_pts": (1670, 2770, 3055, 1368, 1648, 1509,
+                                       15764, 1998, 3561, 2032, 2837)},
+    ("aug_trained", 0.0): {
+        "overall_mm": (4.2506, 2.6651, 2.0845, 6.4947, 3.4179, 5.8731,
+                       8.3032, 1.8909, 2.533, 2.3019, 2.4822),
+        "n_pts": (13445, 7912, 7414, 18261, 11772, 16735, 19245, 8663,
+                  7927, 8429, 6189)},
+    ("aug_trained", 0.5): {
+        "overall_mm": (4.3787, 2.759, 2.0507, 6.6646, 3.4528, 6.0004,
+                       8.3096, 1.915, 2.6142, 2.4413, 2.552),
+        "n_pts": (12895, 7691, 7233, 17697, 11312, 16269, 19283, 8520,
+                  7480, 8270, 6111)},
+    ("aug_trained", 1.0): {
+        "overall_mm": (4.5654, 2.8939, 2.1698, 6.8251, 3.6435, 6.2375,
+                       8.5249, 2.0755, 2.7383, 2.6731, 2.7172),
+        "n_pts": (12505, 7329, 6761, 17288, 10803, 15704, 18924, 7904,
+                  7055, 7601, 5878)},
+    ("aug_trained", 2.0): {
+        "overall_mm": (5.4371, 3.3301, 2.7585, 7.8211, 4.4181, 7.2504,
+                       9.0357, 2.6154, 3.2661, 3.3103, 3.1241),
+        "n_pts": (10535, 6517, 5287, 15296, 9006, 13612, 17745, 6169,
+                  6219, 5670, 5200)},
+}
+AUG_SEED_WIDEN = 0.10
+# the record's log points (its log_every 500) and its last step
+AUG_LOG_STEPS = (*range(0, 6000, 500), 5999)
 # the least share of the voxels above tau on which (c)'s card bf16 forward
 # and CPU float32 forward agree: 0.99 at fast64's 7 convs; 0.985 through
 # the paper width's 12, where no bf16 forward keeps 0.99 (on phase 21's
@@ -582,6 +673,13 @@ JAX_PREPASS_BAND = 0.02
 # float32 keep 0.99
 BF16_VS_F32 = {"dtu9_full": 0.99, "dtu9_paper": 0.985}
 OP_POINT_BAND = 0.10
+# the refinement prepass at a quarter of its presets' Adam steps a level
+# (80) in the runs of phases 15, 17 and 18, whose subject is not the
+# prepass and whose gates compare runs that refine alike: a cut of depth
+# for the script's time limit (a pass ~4x shorter).  Phases 4-5 (the main
+# path), 16 (its consensus gates changed no cube on the occluded scene
+# refined at 20 steps) and 19-24 keep the presets' depth
+PREPASS_CUT = "sweep.refine_calib_steps=20"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32
 # operations/s outside the tensor cores, bf16 tensor-core FLOP/s
@@ -914,6 +1012,38 @@ def forward_diffs(predictor, cfg_model, params, model, x):
             unfused)
 
 
+class chunk_clock:
+    """Within the block, each ``train_steps_scan`` chunk leaves in
+    ``self.chunks`` CUDA events around it and its steps."""
+
+    def __enter__(self):
+        self.real, self.chunks = train_surface.train_steps_scan, []
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.real(*args, **kw)
+            end.record()
+            self.chunks.append((start, end, kw["K"]))
+            return out
+
+        train_surface.train_steps_scan = timed
+        return self
+
+    def __exit__(self, *exc):
+        train_surface.train_steps_scan = self.real
+
+    def readings(self):
+        """Each chunk's ms, and the warm chunks' (all but the first) ms a
+        step, their least and most chunk ms."""
+        ms = [a.elapsed_time(b) for a, b, _ in self.chunks]
+        warm = sum(ms[1:]) / sum(k for *_, k in self.chunks[1:])
+        return {"chunk_ms": ms, "warm_ms_per_step": warm,
+                "warm_chunk_ms": [min(ms[1:]), max(ms[1:])],
+                "events_s": sum(ms) / 1e3}
+
+
 def training_phase(dev, tmp, scan_dir, gt_ply):
     """Phase 15: training at ``dtu9_full``, through ``train_surfacenet`` and
     ``cli train``; returns the numbers for the gather's kernels entry and
@@ -969,42 +1099,27 @@ def training_phase(dev, tmp, scan_dir, gt_ply):
     # (b) train_surfacenet, the scan path: 4 chunks of 25 steps, full
     # width; CUDA events around each chunk
     n_steps = 100
-    chunk_ms = []
-    scan = train_surface.train_steps_scan
-
-    def timed_scan(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = scan(*args, **kw)
-        end.record()
-        chunk_ms.append((start, end, kw["K"]))
-        return out
-
     ck = f"{tmp}/train_ck"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    train_surface.train_steps_scan = timed_scan
     t0 = time.perf_counter()
-    try:
+    with chunk_clock() as clock:
         state, tlog = train_surface.train_surfacenet(
             sphere, cfg, n_steps=n_steps, checkpoint_dir=ck, log_every=1,
             device=dev)
-    finally:
-        train_surface.train_steps_scan = scan
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches_train = warp_gather.entry_launches["warp_gather_bf16"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    warm = [(a.elapsed_time(b), k) for a, b, k in chunk_ms[1:]]
-    ms_step = sum(t for t, _ in warm) / sum(k for _, k in warm)
+    chunks = clock.readings()
+    ms_step = chunks["warm_ms_per_step"]
     losses = np.asarray(tlog.losses)
     first, last = losses[:25].mean(), losses[-25:].mean()
     train = {
         "steps": n_steps, "batch": tc.batch_size, "chunk": tc.scan_chunk,
-        "chunk_ms": [a.elapsed_time(b) for a, b, _ in chunk_ms],
-        "warm_ms_per_step": ms_step, "steps_per_s": 1e3 / ms_step,
+        "chunk_ms": chunks["chunk_ms"], "warm_ms_per_step": ms_step,
+        "steps_per_s": 1e3 / ms_step,
         "cubes_per_s": tc.batch_size * 1e3 / ms_step, "wall_s": wall,
         "peak_mem_gb": peak_gb, "gather_launches": launches_train,
         "loss_first25": float(first), "loss_last25": float(last),
@@ -1080,7 +1195,7 @@ def training_phase(dev, tmp, scan_dir, gt_ply):
     n_rec, _, _ = cli.main([
         "reconstruct", "--scan", scan_dir, "--out", rec_ply, "--preset",
         "dtu9_full", "--checkpoint", f"{ck}/step_{n_steps}/model.npz",
-        "--set", "fusion.tau=0.5"])
+        "--set", "fusion.tau=0.5", "--set", PREPASS_CUT])
     pts, _ = read_ply(rec_ply)
     log(f"reconstruct with the trained checkpoint: {n_rec} points in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1386,7 +1501,8 @@ def eval_split_phase(dev, tmp, scene, scan_dir, tori):
     npz = f"{tmp}/paper.npz"
     save_npz(init_surfacenet(cfg.model, torch.Generator().manual_seed(0))
              .state_dict(), npz)
-    net = ["--checkpoint", npz, "--set", "fusion.tau=0.5"]
+    net = ["--checkpoint", npz, "--set", "fusion.tau=0.5", "--set",
+           PREPASS_CUT]
     launches, out = {}, {}
 
     # (a) reconstruct-all over two scans in the SampleSet layout (one root
@@ -2498,7 +2614,8 @@ def rms_residual(duv, true):
 # keys of a phase's readings that hold a record's or the JAX package's
 # values, or a gate's limit: logged beside the card's readings, and kept
 # out of the kernels line, which carries only what this run measured
-NOT_MEASURED = ("record", "records", "bound_px", "at_most", "within")
+NOT_MEASURED = ("record", "records", "vs_record", "bound_px", "at_most",
+                "within")
 NOT_MEASURED_PREFIXES = ("jax_", "injected_")
 
 
@@ -2862,6 +2979,310 @@ def trained_robustness_phase(dev, tmp):
     return out, launches
 
 
+def aug_record():
+    """results/robustness_aug_r04.json's rows, {arm: {sigma: row}}, and
+    final losses, {arm: loss}."""
+    with open(os.path.join(RESULTS, "robustness_aug_r04.json")) as f:
+        models = json.load(f)["models"]
+    return ({arm: {r["calib_sigma_px"]: r for r in m["rows"]}
+             for arm, m in models.items()},
+            {arm: m["final_loss"] for arm, m in models.items()})
+
+
+def aug_misses(rows, record, band=AUG_BAND, spread=AUG_SEED_SPREAD):
+    """robustness_aug_r04's gates on ``rows`` ({arm: {sigma: row}}, as
+    ``aug_record`` gives the record's): every row's overall mean and
+    points within ``band`` of ``record``'s, but for a reading that
+    ``spread`` names, where both this run's reading and the record's must
+    lie within the range of the runs it lists, widened by
+    ``AUG_SEED_WIDEN``; and the record's five claims:
+    the augmented net's clean overall >= 1.5x the clean-trained net's
+    (record 2.28x); the clean-trained net's sigma 2 overall >= 2x its
+    sigma 0 (3.37x); the augmented net's sigma 2 / sigma 0 ratio <= 0.6x
+    the clean-trained net's (0.40x); the clean-trained net's points fall
+    at each step of sigma; at sigma 2 the augmented net keeps more points.
+    Returns (the claims' readings, a line a failed gate)."""
+    misses = [f"the seed spread names {arm} sigma {sigma}, no row of the "
+              f"record" for arm, sigma in spread
+              if sigma not in record.get(arm, {})]
+    for arm, want in record.items():
+        for sigma, w in want.items():
+            got = rows[arm][sigma]
+            runs = spread.get((arm, sigma), {})
+            for key in ("overall_mm", "n_pts"):
+                if key not in runs:
+                    if not within(got[key], w[key], band):
+                        misses.append(f"{arm} sigma {sigma}: {key} "
+                                      f"{got[key]} is not within {band:.0%} "
+                                      f"of the record's {w[key]}")
+                    continue
+                lo = (1.0 - AUG_SEED_WIDEN) * min(runs[key])
+                hi = (1.0 + AUG_SEED_WIDEN) * max(runs[key])
+                if not lo <= w[key] <= hi:
+                    misses.append(
+                        f"{arm} sigma {sigma}: the record's {key} {w[key]} "
+                        f"lies outside the port's runs widened, [{lo}, "
+                        f"{hi}]: not training noise")
+                if not lo <= got[key] <= hi:
+                    misses.append(
+                        f"{arm} sigma {sigma}: {key} {got[key]} lies "
+                        f"outside the port's runs widened, [{lo}, {hi}]")
+    clean, aug = rows["clean_trained"], rows["aug_trained"]
+
+    def degradation(arm):
+        return arm[2.0]["overall_mm"] / arm[0.0]["overall_mm"]
+
+    claims = {
+        "aug_over_clean_sigma0": aug[0.0]["overall_mm"]
+        / clean[0.0]["overall_mm"],
+        "clean_sigma2_over_sigma0": degradation(clean),
+        "aug_degradation_over_clean": degradation(aug) / degradation(clean),
+        "clean_points_by_sigma": [clean[s]["n_pts"] for s in AUG_SIGMAS],
+        "sigma2_points_aug_clean": [aug[2.0]["n_pts"], clean[2.0]["n_pts"]],
+    }
+    if not claims["aug_over_clean_sigma0"] >= 1.5:
+        misses.append(f"the augmented net's clean overall is "
+                      f"{claims['aug_over_clean_sigma0']:.4f}x the "
+                      f"clean-trained net's (at least 1.5x)")
+    if not claims["clean_sigma2_over_sigma0"] >= 2.0:
+        misses.append(f"the clean-trained net's sigma 2 overall is "
+                      f"{claims['clean_sigma2_over_sigma0']:.4f}x its sigma "
+                      f"0 (at least 2x)")
+    if not claims["aug_degradation_over_clean"] <= 0.6:
+        misses.append(f"the augmented net degrades "
+                      f"{claims['aug_degradation_over_clean']:.4f}x as much "
+                      f"as the clean-trained net (at most 0.6x)")
+    pts = claims["clean_points_by_sigma"]
+    if not all(a > b for a, b in zip(pts, pts[1:])):
+        misses.append(f"the clean-trained net's points do not fall at each "
+                      f"step of sigma: {pts}")
+    a, c = claims["sigma2_points_aug_clean"]
+    if not a > c:
+        misses.append(f"at sigma 2 the augmented net keeps {a} points, the "
+                      f"clean-trained net {c}")
+    return claims, misses
+
+
+def training_aug_phase(dev, tmp, seed=0, hold=True):
+    """Phase 25: training from scratch, the two arms of
+    robustness_aug_r04 (``AUG_ARMS``), each trained on the card by
+    ``train_surfacenet`` at ``OCC_SETS`` plus ``AUG_TRAIN_SETS`` (train.seed
+    ``seed``) on ``OCC_SCENES["clean"]``, its chunks timed by CUDA events,
+    then saved by ``save_checkpoint``, loaded by ``load_surfacenet`` and
+    swept through ``cli.reconstruct_scan`` on that scene and its
+    ``degrade_scene(seed=1)`` copies, and on the clean scene once more
+    from the trained model in memory (the same points); every row held to
+    the record and its claims (``aug_misses``); then the clean-trained net
+    fused and from 12 PNGs through ``cli reconstruct`` (reported).  With
+    ``hold`` false a missed gate on the readings goes to ``"misses"``
+    instead of raising.  Returns the readings and each run's kernel
+    launches."""
+    rows_want, loss_want = aug_record()
+    named = {f"{arm} sigma {sigma}": list(keys)
+             for (arm, sigma), keys in AUG_SEED_SPREAD.items()}
+    log(f"training from scratch: the readings held within the port's "
+        f"earlier runs widened by {AUG_SEED_WIDEN:.0%}, not within "
+        f"{AUG_BAND:.0%} of the record: {json.dumps(named)}")
+    base = cli._apply_overrides(Config(), [*OCC_SETS, *AUG_TRAIN_SETS,
+                                           f"train.seed={seed}"])
+    n_steps, batch = base.train.n_steps, base.train.batch_size
+    make, kw = OCC_SCENES["clean"]
+    t0 = time.perf_counter()
+    clean = make(**kw)
+    scenes = {sigma: clean if sigma == 0.0 else degrade_scene(
+        clean, calib_sigma_px=sigma, seed=1) for sigma in AUG_SIGMAS}
+    gt = clean.surface_points(8000)
+    out = {"seed": seed, "scene_s": time.perf_counter() - t0, "arms": {}}
+    launches, misses = {}, []
+
+    def sweep(sc, name, cfg, predictor):
+        """One run through ``cli.reconstruct_scan``: (readings, points)."""
+        scan = Scan(sc.images, sc.Ps, sc.bbox_min, sc.bbox_max, "sphere")
+        ply = f"{tmp}/aug25_{len(launches)}.ply"
+        reset_counts()
+        t0 = time.perf_counter()
+        with split_scans() as ss:
+            n, st, tm = cli.reconstruct_scan(scan, cfg, predictor, ply, dev)
+        rec = ss.runs[0]
+        pts = read_ply(ply)[0]
+        run = {"points": n, "cubes": st.n_cubes_after_prefilter,
+               "nonempty": st.n_cubes_nonempty, "batches": st.n_batches,
+               "dense_dispatches": rec["dense_dispatches"],
+               "cubes_per_s": st.n_cubes_after_prefilter / st.sweep_s,
+               "stages": tm, "peak_mem_gb": rec["peak_mem_gb"],
+               "wall_s": time.perf_counter() - t0,
+               "launches": rec["launches"]}
+        run.update(occlusion_metrics(pts, gt, None, None, dev))
+        launches[name] = rec["launches"]
+        if rec["dense_dispatches"]:
+            raise RuntimeError(f"{name}: {rec['dense_dispatches']} dense "
+                               f"re-fetches (the record's scenes need none)")
+        check_sweep_launches(name, rec["launches"], st.n_batches,
+                             st.n_batches)
+        if n <= 0 or len(pts) != n or not np.isfinite(pts).all():
+            raise RuntimeError(f"{name}: wrote {n} points ({len(pts)} read)")
+        return run, pts
+
+    npz, card_rows = {}, {}
+    for arm, aug in AUG_ARMS.items():
+        cfg = cli._apply_overrides(base, [f"train.aug_calib_sigma_px={aug}"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with chunk_clock() as clock:
+            state, tlog = train_surface.train_surfacenet(
+                clean, cfg, log_every=1, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"{arm}/train"] = split_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        npz[arm] = os.path.join(train_surface.save_checkpoint(
+            f"{tmp}/aug25_{arm}", state, state.step), "model.npz")
+        losses = np.asarray(tlog.losses)
+        train = dict(clock.readings(), steps=state.step, batch=batch,
+                     chunk=cfg.train.scan_chunk, wall_s=wall,
+                     peak_mem_gb=peak_gb,
+                     gather_launches=launches[f"{arm}/train"]["warp_gather"])
+        train.update(
+            steps_per_s=1e3 / train["warm_ms_per_step"],
+            cubes_per_s=batch * 1e3 / train["warm_ms_per_step"],
+            losses_at={str(s): float(losses[s]) for s in AUG_LOG_STEPS
+                       if s < len(losses)},
+            loss_first250=float(losses[:250].mean()),
+            loss_last250=float(losses[-250:].mean()),
+            record={"final_loss": loss_want[arm]})
+        log(f"training from scratch {arm}: warm ms/step "
+            f"{train['warm_ms_per_step']:.3f}, steps/s "
+            f"{train['steps_per_s']:.2f}, wall {wall:.1f} s against the "
+            f"chunks' events {train['events_s']:.1f} s, peak memory "
+            f"{peak_gb:.3f} GB, final loss {losses[-1]:.4f} (record "
+            f"{loss_want[arm]})")
+        log(f"training from scratch {arm} {json.dumps(train)}")
+        bf16 = launches[f"{arm}/train"]["warp_gather_bf16"]
+        if (len(losses) != n_steps or state.step != n_steps
+                or not np.isfinite(losses).all()):
+            raise RuntimeError(f"{arm}: {len(losses)} losses, step "
+                               f"{state.step}, finite: "
+                               f"{np.isfinite(losses).all()}")
+        if not bf16 == train["gather_launches"] == n_steps:
+            raise RuntimeError(f"{arm}: the training gather launched "
+                               f"{train['gather_launches']} times ({bf16} "
+                               f"bf16) in {n_steps} steps")
+        if not train["loss_last250"] < train["loss_first250"]:
+            misses.append(f"{arm}: the loss did not fall: "
+                          f"{train['loss_first250']} over the first 250 "
+                          f"steps, {train['loss_last250']} over the last")
+
+        # the checkpoint through load_surfacenet, swept on each scene
+        predictor = make_predictor(load_surfacenet(npz[arm], cfg.model),
+                                   cfg.model, dev)
+        rows = {}
+        for sigma, sc in scenes.items():
+            run, pts = sweep(sc, f"{arm}/sigma={sigma}", cfg, predictor)
+            want = run["record"] = rows_want[arm][sigma]
+            run["vs_record"] = {k: run[k] / want[k] for k in (
+                "acc_mm", "comp_mm", "overall_mm", "n_pts")}
+            rows[sigma] = run
+            log(f"training from scratch {arm} sigma {sigma} "
+                f"{json.dumps(run)}")
+            if sigma == 0.0:
+                pts0 = pts
+        del predictor
+        # the trained model in memory, eval mode: the checkpoint's points
+        mem, pm = sweep(clean, f"{arm}/in_memory", cfg,
+                        make_predictor(state.model, cfg.model, dev))
+        mem["equal_to_checkpoint"] = bool(np.array_equal(pm, pts0))
+        log(f"training from scratch {arm} in memory {json.dumps(mem)}")
+        if not mem["equal_to_checkpoint"]:
+            misses.append(f"{arm}: the in-memory sweep's {len(pm)} points "
+                          f"differ from the checkpoint's {len(pts0)}")
+        if arm == "clean_trained":
+            clean_cfg, clean_pts = cfg, pts0
+        card_rows[arm] = rows
+        out["arms"][arm] = {"aug_calib_sigma_px": aug, "train": train,
+                            "rows": {str(sigma): run
+                                     for sigma, run in rows.items()},
+                            "in_memory": mem}
+        del state, tlog
+        torch.cuda.empty_cache()
+
+    arms = out["arms"]
+    out["claims"], rec_misses = aug_misses(card_rows, rows_want)
+    misses += rec_misses
+    log(f"training from scratch claims {json.dumps(out['claims'])}")
+    last = {arm: a["train"]["loss_last250"] for arm, a in arms.items()}
+    if not last["aug_trained"] > last["clean_trained"]:
+        misses.append(f"the augmented arm's last 250 losses average "
+                      f"{last['aug_trained']}, not above the clean arm's "
+                      f"{last['clean_trained']}")
+
+    # the clean-trained net fused: the conv kernel on its two live routes
+    # with BatchNorm statistics the card accumulated; within one voxel
+    # and 2% of unfused
+    fused_cfg = cli._apply_overrides(clean_cfg, ["model.fused_inference=true"])
+    fused, pf = sweep(clean, "clean_trained/fused", fused_cfg, make_predictor(
+        load_surfacenet(npz["clean_trained"], fused_cfg.model),
+        fused_cfg.model, dev))
+    fused["voxel_agreement"] = voxel_set_agreement(pf, clean_pts)
+    fused["one_voxel_agreement"] = one_voxel_agreement(
+        pf, clean_pts, base.voxel.voxel_size_mm)
+    out["fused"] = fused
+    log(f"training from scratch clean_trained fused {json.dumps(fused)}")
+    n_layers = len(conv_layers(base.model, base.voxel.cube_size))
+    check_fused_routes("the fused clean-trained run", base, fused["launches"],
+                       fused["batches"])
+    if fused["launches"]["conv3d"] != n_layers * fused["batches"]:
+        raise RuntimeError(f"the fused clean-trained run: "
+                           f"{fused['launches']['conv3d']} conv launches in "
+                           f"{fused['batches']} forwards")
+    a = card_rows["clean_trained"][0.0]
+    if (fused["one_voxel_agreement"] < 0.99
+            or not within(fused["n_pts"], a["n_pts"], 0.02)):
+        misses.append(f"the fused run differs from the unfused one: one "
+                      f"voxel {fused['one_voxel_agreement']}, points "
+                      f"{fused['n_pts']} against {a['n_pts']}")
+
+    # the clean scene from 12 PNGs through cli reconstruct with the
+    # step-6000 checkpoint (reported: the images are quantised to 8 bits,
+    # the record's were not)
+    scan_dir, ply = f"{tmp}/aug25_scan", f"{tmp}/aug25_png.ply"
+    t0 = time.perf_counter()
+    write_scan(scan_dir, clean.images, clean.Ps, clean.bbox_min,
+               clean.bbox_max)
+    write_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    with split_scans() as ss:
+        n, st, tm = cli.main([
+            "reconstruct", "--scan", scan_dir, "--out", ply, "--checkpoint",
+            npz["clean_trained"],
+            *(arg for kv in OCC_SETS for arg in ("--set", kv))])
+    png = {"points": n, "batches": st.n_batches,
+           "cubes": st.n_cubes_after_prefilter,
+           "cubes_per_s": st.n_cubes_after_prefilter / st.sweep_s,
+           "stages": tm, "write_s": write_s,
+           "wall_s": time.perf_counter() - t0,
+           "peak_mem_gb": ss.runs[0]["peak_mem_gb"],
+           "dense_dispatches": ss.runs[0]["dense_dispatches"],
+           "launches": ss.runs[0]["launches"]}
+    pp = read_ply(ply)[0]
+    png.update(occlusion_metrics(pp, gt, None, None, dev))
+    png["voxel_agreement_in_memory"] = voxel_set_agreement(pp, clean_pts)
+    png["record"] = rows_want["clean_trained"][0.0]
+    launches["clean_trained/png"] = png["launches"]
+    out["png"] = png
+    log(f"training from scratch clean_trained from PNGs {json.dumps(png)}")
+    check_sweep_launches("training from scratch from PNGs", png["launches"],
+                         st.n_batches, st.n_batches + png["dense_dispatches"])
+    if n <= 0:
+        misses.append("from PNGs: no points")
+    if misses and hold:
+        raise RuntimeError("training from scratch: " + "; ".join(misses))
+    out["misses"] = misses
+    return out, launches
+
+
 def rank_job(path) -> int:
     """One rank of phase 18, ``python3 chip_smoke.py --rank-job JOB``:
     started with the torchrun environment by ``launch_local``; runs the
@@ -2956,7 +3377,7 @@ def sharded_phase(dev, tmp, scene, scan_dir, npz, mask_items):
     # (a) the same configuration in one process, through the sharded
     # sweep on a grid of one rank (its cubes/s is what 2 ranks scale on)
     t0 = time.perf_counter()
-    cfg_a = cfg.replace(fusion=dataclasses.replace(cfg.fusion, tau=0.5))
+    cfg_a = cli._apply_overrides(cfg, ["fusion.tau=0.5", PREPASS_CUT])
     predictor = make_predictor(load_surfacenet(npz, cfg.model), cfg.model,
                                dev)
     n_one, st_one, tm_one = reconstruct_scan(
@@ -2979,6 +3400,7 @@ def sharded_phase(dev, tmp, scene, scan_dir, npz, mask_items):
             "reconstruct", "--sharded", "--scan", scan_dir, "--out",
             f"{shard}/two.ply", "--preset", "dtu9_full", "--checkpoint", npz,
             "--set", "fusion.tau=0.5", "--set", "mesh.block_axis=2",
+            "--set", PREPASS_CUT,
             "--ledger", f"{shard}/two_ledgers", "--device", dev.type],
         "train_f32": ["train", "--sharded", *net, *f32, "--checkpoint-dir",
                       f"{shard}/ck_f32_2"],
@@ -3295,8 +3717,14 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--rank-job"]:
         return rank_job(sys.argv[2])
-    if len(sys.argv) == 2 and sys.argv[1] in ALONE:
-        return alone(*ALONE[sys.argv[1]])
+    if sys.argv[1:2] and sys.argv[1] in ALONE:
+        name, phase_fn, prepare, parse = ALONE[sys.argv[1]]
+        try:
+            kw = parse(sys.argv[2:])
+        except ValueError as e:
+            print(f"chip_smoke: {e}", file=sys.stderr)
+            return 2
+        return alone(name, functools.partial(phase_fn, **kw), prepare)
     # one worker process renders phase 17's tori on the host while the
     # card runs phases 4-16; leaving the block terminates it
     with multiprocessing.get_context("spawn").Pool(1, os.nice,
@@ -3321,7 +3749,7 @@ def write_op_point_scenes(tmp):
         f"{json.dumps(write_op_scenes(tmp, scenes))} s")
 
 
-def alone(name, phase_fn, prepare=None) -> int:
+def alone(name, phase_fn, prepare) -> int:
     """``python3 chip_smoke.py --split-alone`` (or ``--occlusion-alone``,
     ``--robustness-alone``, ``ALONE``): the build, then that phase by
     itself, with no other phase's work before it on the card or the host
@@ -3341,13 +3769,31 @@ def alone(name, phase_fn, prepare=None) -> int:
     return 0
 
 
+def no_args(args):
+    """An ``ALONE`` flag's parser when it takes no arguments."""
+    if args:
+        raise ValueError(f"unknown arguments {args}")
+    return {}
+
+
+def train_seed_args(args):
+    """``--training-alone``'s ``[--train-seed N]``."""
+    if args[:1] == ["--train-seed"] and len(args) == 2:
+        return {"seed": int(args[1])}
+    return no_args(args)
+
+
 # the flags that run one phase alone: (its readings' name, the phase, what
-# it needs written first)
+# it needs written first, its arguments' parser)
 ALONE = {
     "--split-alone": ("trained_split", trained_split_phase,
-                      write_op_point_scenes),
-    "--occlusion-alone": ("trained_occlusion", trained_occlusion_phase),
-    "--robustness-alone": ("trained_robustness", trained_robustness_phase),
+                      write_op_point_scenes, no_args),
+    "--occlusion-alone": ("trained_occlusion", trained_occlusion_phase,
+                          None, no_args),
+    "--robustness-alone": ("trained_robustness", trained_robustness_phase,
+                           None, no_args),
+    "--training-alone": ("training_from_scratch", training_aug_phase, None,
+                         train_seed_args),
 }
 
 
@@ -4100,6 +4546,17 @@ def run(pool) -> int:
     rob_tr["wall_s"] = time.perf_counter() - t0
     log(f"trained robustness phase {rob_tr['wall_s']:.1f} s")
 
+    phase(25, "training from scratch: the robustness_aug_r04 arms, "
+          "train_surfacenet 6,000 steps each with calibration augmentation "
+          "off and on, each net saved, loaded and swept on the sphere and "
+          "its miscalibrated copies against results/robustness_aug_r04"
+          ".json, the clean-trained net fused and from PNGs")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    aug_tr, aug_tr_launches = training_aug_phase(dev, tmp.name)
+    aug_tr["wall_s"] = time.perf_counter() - t0
+    log(f"training from scratch phase {aug_tr['wall_s']:.1f} s")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -4134,6 +4591,9 @@ def run(pool) -> int:
             "trained_robustness_path_launches": {
                 k: v["warp_gather"] for k, v in rob_tr_launches.items()},
             "trained_robustness": card_readings(rob_tr),
+            "training_path_launches": {
+                k: v["warp_gather"] for k, v in aug_tr_launches.items()},
+            "training_from_scratch": card_readings(aug_tr),
             "bench_path_launches": bench_launches["warp_gather_bf16"],
             "bench": bench_out,
         },
@@ -4165,6 +4625,8 @@ def run(pool) -> int:
                 k: v["affine_vote"] for k, v in occ_tr_launches.items()},
             "trained_robustness_path_launches": {
                 k: v["affine_vote"] for k, v in rob_tr_launches.items()},
+            "training_path_launches": {
+                k: v["affine_vote"] for k, v in aug_tr_launches.items()},
             "bench_path_launches": bench_launches["affine_vote"],
             "bench_route_launches": bench_launches["affine_vote_routes"],
         },
@@ -4191,6 +4653,9 @@ def run(pool) -> int:
             "trained_robustness_path_launches": {
                 k: v["conv3d"] for k, v in rob_tr_launches.items()
                 if k.startswith("sphere/fused")},
+            "training_path_launches": {
+                "clean_trained/fused":
+                    aug_tr_launches["clean_trained/fused"]["conv3d"]},
             "max_abs_err": max(layer["max_abs_err"] for layer in layers),
             # one forward: the seven layers' sums
             "ms": conv_ms,
@@ -4234,7 +4699,7 @@ def run(pool) -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(25, "result")
+    phase(26, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

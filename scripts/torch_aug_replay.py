@@ -1,0 +1,148 @@
+"""Replay results/robustness_aug_r04.json's two training runs on the card
+with the JAX package's own initial weights and random draws.
+
+``chip_smoke.py`` phase 25 trains the record's two arms with the port's
+own random stream (a ``torch.Generator``), so its nets are other draws
+of the recipe than the record's.  This script runs the same phase
+(``chip_smoke.training_aug_phase``: 2 x 6,000 steps, each net swept on
+the sphere and its ``degrade_scene(seed=1)`` copies, fused and from PNGs)
+with the reference's inputs instead, as ``scripts/aug_replay_inputs.py``
+writes them on a machine with JAX (for the record's ``train.seed`` 0, or
+another):
+
+  * each arm starts from the reference's ``create_train_state(cfg,
+    PRNGKey(seed))`` variables, mapped by ``models/convert.py``'s
+    ``params_from_jax``;
+  * every ``torch.randint`` / ``torch.rand`` / ``torch.randn`` that the
+    port's ``sample_device_batch`` and ``train_step`` draw from their
+    generator returns the reference step's own draw instead (the
+    candidate, the jitter's uniform, the pair, the augmentation's
+    N(0, 1) offsets), so the port computes each step's origins, labels
+    and perturbed cameras from the reference's numbers.
+
+The package is not changed: the draws are fed by replacing the three
+functions while ``train_surfacenet`` runs.  What still differs from the
+record is the float order (bf16 convolutions on the card, not the TPU)
+and the sampler's pair tables where the two packages' pair scores
+near-tie (reported).  The phase's gates are reported, not raised.
+Prints the phase's readings as one JSON line, last.
+
+    python3 scripts/torch_aug_replay.py INPUTS_DIR
+"""
+
+import contextlib
+import json
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np
+import torch
+
+import chip_smoke
+from surfacenet_tpu_torch.models.convert import params_from_jax
+from surfacenet_tpu_torch.ops.cuda import _build
+from surfacenet_tpu_torch.train import train_surface
+
+
+def nested(flat):
+    """{"params/a/b": x} -> {"params": {"a": {"b": x}}}."""
+    out = {}
+    for name, arr in flat.items():
+        *path, leaf = name.split("/")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = arr
+    return out
+
+
+@contextlib.contextmanager
+def fed(draws, dev, aug):
+    """Within the block the generator draws of ``train_steps_scan`` are
+    the reference's: per step randint (candidates), rand (jitter),
+    randint (pairs), and with augmentation randn (offsets)."""
+    t = {k: torch.as_tensor(np.array(draws[k]), device=dev)
+         for k in ("idx", "unit", "choice", "normal")}
+    order = (("randint", "idx"), ("rand", "unit"), ("randint", "choice"))
+    if aug:
+        order += (("randn", "normal"),)
+    state = {"step": 0, "call": 0}
+    real = {name: getattr(torch, name) for name in ("randint", "rand",
+                                                    "randn")}
+
+    def feeder(name):
+        def draw(*args, generator=None, **kw):
+            if generator is None:
+                return real[name](*args, **kw)
+            want, key = order[state["call"]]
+            if want != name:
+                raise RuntimeError(f"step {state['step']}: torch.{name} "
+                                   f"where the reference draws {want}")
+            got = t[key][state["step"]]
+            size = args[1] if name == "randint" else args[0]
+            if tuple(size) != tuple(got.shape):
+                raise RuntimeError(f"step {state['step']}: torch.{name} of "
+                                   f"{tuple(size)}, the reference's "
+                                   f"{tuple(got.shape)}")
+            state["call"] += 1
+            if state["call"] == len(order):
+                state["call"], state["step"] = 0, state["step"] + 1
+            return got.to(torch.int64) if name == "randint" else got.clone()
+        return draw
+
+    for name in real:
+        setattr(torch, name, feeder(name))
+    try:
+        yield state
+    finally:
+        for name, fn in real.items():
+            setattr(torch, name, fn)
+
+
+def main(inputs):
+    dev = torch.device("cuda", 0)
+    chip_smoke.log(chip_smoke.card_line())
+    chip_smoke.log(f"kernels built in {_build.build_all():.2f} s")
+    init = params_from_jax(nested(dict(np.load(
+        os.path.join(inputs, "init.npz")))))
+    draws = dict(np.load(os.path.join(inputs, "draws.npz")))
+    real_train = train_surface.train_surfacenet
+    fed_steps, tables = {}, {}
+
+    def replay(scene, cfg, **kw):
+        state = train_surface.create_train_state(cfg, device=dev)
+        state.model.load_state_dict(init)
+        cand_pts, cand_pairs, *_ = train_surface.make_device_sampler(
+            scene, cfg, seed=cfg.train.seed, device=dev)
+        tables["cand_pts_max_diff_mm"] = float(np.abs(
+            cand_pts.cpu().numpy() - draws["cand_pts"]).max())
+        same = (cand_pairs.cpu().numpy() == draws["cand_pairs"]).all(-1)
+        tables["cand_pairs_equal_share"] = float(same.mean())
+        aug = cfg.train.aug_calib_sigma_px > 0
+        with fed(draws, dev, aug) as st:
+            out = real_train(scene, cfg, state=state, **kw)
+        fed_steps[f"aug={aug}"] = st["step"]
+        return out
+
+    train_surface.train_surfacenet = replay
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, launches = chip_smoke.training_aug_phase(
+            dev, tmp, seed=int(draws["seed"]), hold=False)
+    train_surface.train_surfacenet = real_train
+    out.update(wall_s=time.perf_counter() - t0, fed_steps=fed_steps,
+               sampler_tables=tables)
+    chip_smoke.log(f"replay fed steps {fed_steps}, tables {tables}, "
+                   f"misses {out['misses']}")
+    print(json.dumps({"training_replay": out, "launches": launches}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1]))

@@ -286,17 +286,21 @@ def forward_flops(cfg: ModelConfig, D: int) -> int:
 def init_surfacenet(cfg: ModelConfig, generator: torch.Generator) -> SurfaceNet:
     """A SurfaceNet with seeded random weights, float32, on the CPU.
 
-    Convolution kernels are drawn like flax's default (LeCun normal:
-    std 1/sqrt(fan_in)) from ``generator``; biases are zero and BatchNorm
-    starts at identity statistics, as in the reference's ``init``.
+    Convolution kernels are drawn like flax's default, LeCun normal: a
+    normal truncated at two of its deviations, scaled so that the kernel's
+    deviation is 1/sqrt(fan_in) (``jax.nn.initializers.lecun_normal``),
+    from ``generator``; biases are zero and BatchNorm starts at identity
+    statistics, as in the reference's ``init``.  The values are not
+    flax's; only the distribution is.
     """
     model = SurfaceNet(cfg)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
                 fan_in = m.in_channels * math.prod(m.kernel_size)
-                m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
-                                 generator=generator)
+                std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
     return model.eval()
