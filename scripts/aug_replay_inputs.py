@@ -1,6 +1,7 @@
 """The JAX package's own random inputs to results/robustness_aug_r04.json's
 two training runs, or to the same recipe at another ``train.seed``,
-written for ``scripts/torch_aug_replay.py``.
+written for ``scripts/torch_aug_replay.py``; with ``--finetune``, to
+results/robustness_ft_r05.json's three fine-tunes instead.
 
 ``scripts/calib_aug_eval.py 6000`` trains both arms with
 ``train_surfacenet`` from ``create_train_state(cfg, PRNGKey(0))`` on the
@@ -24,7 +25,16 @@ Both arms take the same draws (the clean arm leaves ``normal`` unused).
 SEED (default 0, the record's) is ``train.seed``: the initial key, the
 sampler's seed, and one less than the step keys' seed.
 
-    JAX_PLATFORMS=cpu python scripts/aug_replay_inputs.py OUT_DIR [SEED]
+``--finetune``: ``scripts/calib_finetune_eval.py``'s recipe, which starts
+each arm from ``weights/golden_sphere_30k`` (the port from its
+conversion, ``weights_torch/golden_sphere_30k.npz``), so no init.npz;
+SEED defaults to its 7 and a chunk is 25 steps.  The arms' 1,000, 3,000
+and 6,000 steps draw from one stream, so the 6,000 steps' draws serve
+all three, each the first as many; draws.npz also holds
+``recipe="finetune"``.
+
+    JAX_PLATFORMS=cpu python scripts/aug_replay_inputs.py OUT_DIR [SEED] \
+        [--finetune]
 """
 
 import os
@@ -45,17 +55,21 @@ from surfacenet_tpu.train.train_surface import (
 )
 
 N_STEPS = 6000
+# train.scan_chunk of each recipe: calib_aug_eval.py's, calib_finetune_eval.py's
+CHUNK = {"aug": 250, "finetune": 25}
 
 
-def record_config(seed):
-    """``scripts/calib_aug_eval.py``'s ``base`` at 6,000 steps."""
+def record_config(seed, recipe="aug"):
+    """``scripts/calib_aug_eval.py``'s ``base`` at 6,000 steps, with the
+    recipe's chunk (the draws depend on nothing else of the config)."""
     return Config(
         voxel=VoxelConfig(voxel_size_mm=0.5, cube_size=32, overlap=8),
         sweep=SweepConfig(cube_batch=32),
         fusion=FusionConfig(n_view_pairs=4, tau=0.7, gamma=0.7,
                             ray_pool_mode="affine", n_pool_views=6),
         train=TrainConfig(batch_size=16, n_steps=N_STEPS,
-                          lr_decay="cosine", seed=seed, scan_chunk=250),
+                          lr_decay="cosine", seed=seed,
+                          scan_chunk=CHUNK[recipe]),
     )
 
 
@@ -76,15 +90,19 @@ def step_draws(k, *, n_cand, n_pairs, batch, n_views):
             jax.random.normal(k_aug, (n_views, 2), jnp.float32))
 
 
-def main(out_dir, seed=0):
+def main(out_dir, seed=None, recipe="aug"):
     os.makedirs(out_dir, exist_ok=True)
-    cfg = record_config(int(seed))
+    if seed is None:
+        seed = 7 if recipe == "finetune" else 0
+    cfg = record_config(int(seed), recipe)
     tc = cfg.train
     scene = make_sphere_scene(n_views=12, hw=(600, 800), radius=30.0)
-    _, state = create_train_state(cfg, jax.random.PRNGKey(tc.seed))
-    np.savez(os.path.join(out_dir, "init.npz"),
-             **flat(state.params, "params"),
-             **flat(state.batch_stats, "batch_stats"))
+    state = None
+    if recipe == "aug":
+        _, state = create_train_state(cfg, jax.random.PRNGKey(tc.seed))
+        np.savez(os.path.join(out_dir, "init.npz"),
+                 **flat(state.params, "params"),
+                 **flat(state.batch_stats, "batch_stats"))
     cand_pts, cand_pairs, _, _ = make_device_sampler(scene, cfg,
                                                      seed=tc.seed)
     draw = jax.jit(jax.vmap(lambda k: step_draws(
@@ -105,11 +123,14 @@ def main(out_dir, seed=0):
                           np.asarray(want))
     np.savez(os.path.join(out_dir, "draws.npz"), idx=idx, unit=unit,
              choice=choice, normal=normal, cand_pts=np.asarray(cand_pts),
-             cand_pairs=np.asarray(cand_pairs), seed=np.int64(tc.seed))
-    print(f"{out_dir}: {len(idx)} steps of draws, "
-          f"{sum(v.size for v in flat(state.params, 'p').values())} "
-          f"initial parameters")
+             cand_pairs=np.asarray(cand_pairs), seed=np.int64(tc.seed),
+             recipe=recipe)
+    print(f"{out_dir}: {len(idx)} steps of draws ({recipe}, seed "
+          f"{tc.seed}, chunks of {tc.scan_chunk})" + ("" if state is None else
+          f", {sum(v.size for v in flat(state.params, 'p').values())} "
+          f"initial parameters"))
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    args = [a for a in sys.argv[1:] if a != "--finetune"]
+    main(*args, recipe="finetune" if "--finetune" in sys.argv else "aug")

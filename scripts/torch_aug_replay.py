@@ -27,6 +27,12 @@ and the sampler's pair tables where the two packages' pair scores
 near-tie (reported).  The phase's gates are reported, not raised.
 Prints the phase's readings as one JSON line, last.
 
+Inputs written with ``--finetune`` replay results/robustness_ft_r05.json
+instead: ``chip_smoke.finetune_phase`` with its three arms, each from
+its own start (the converted ``golden_sphere_30k``, as the record's from
+``weights/golden_sphere_30k``), fed the recipe's draws (seed 7, chunks of
+25 steps); the rows are held to the record's start rows.
+
     python3 scripts/torch_aug_replay.py INPUTS_DIR
 """
 
@@ -108,15 +114,18 @@ def main(inputs):
     dev = torch.device("cuda", 0)
     chip_smoke.log(chip_smoke.card_line())
     chip_smoke.log(f"kernels built in {_build.build_all():.2f} s")
-    init = params_from_jax(nested(dict(np.load(
-        os.path.join(inputs, "init.npz")))))
     draws = dict(np.load(os.path.join(inputs, "draws.npz")))
+    finetune = str(draws.get("recipe", "aug")) == "finetune"
+    if not finetune:
+        init = params_from_jax(nested(dict(np.load(
+            os.path.join(inputs, "init.npz")))))
     real_train = train_surface.train_surfacenet
     fed_steps, tables = {}, {}
 
-    def replay(scene, cfg, **kw):
-        state = train_surface.create_train_state(cfg, device=dev)
-        state.model.load_state_dict(init)
+    def replay(scene, cfg, state=None, **kw):
+        if state is None:  # from scratch: the reference's initial weights
+            state = train_surface.create_train_state(cfg, device=dev)
+            state.model.load_state_dict(init)
         cand_pts, cand_pairs, *_ = train_surface.make_device_sampler(
             scene, cfg, seed=cfg.train.seed, device=dev)
         tables["cand_pts_max_diff_mm"] = float(np.abs(
@@ -126,14 +135,19 @@ def main(inputs):
         aug = cfg.train.aug_calib_sigma_px > 0
         with fed(draws, dev, aug) as st:
             out = real_train(scene, cfg, state=state, **kw)
-        fed_steps[f"aug={aug}"] = st["step"]
+        fed_steps[f"aug={aug} steps={cfg.train.n_steps}"] = st["step"]
         return out
 
     train_surface.train_surfacenet = replay
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        out, launches = chip_smoke.training_aug_phase(
-            dev, tmp, seed=int(draws["seed"]), hold=False)
+        if finetune:
+            out, launches = chip_smoke.finetune_phase(
+                dev, tmp, seed=int(draws["seed"]),
+                arms=tuple(chip_smoke.FT_ARMS), hold=False)
+        else:
+            out, launches = chip_smoke.training_aug_phase(
+                dev, tmp, seed=int(draws["seed"]), hold=False)
     train_surface.train_surfacenet = real_train
     out.update(wall_s=time.perf_counter() - t0, fed_steps=fed_steps,
                sampler_tables=tables)

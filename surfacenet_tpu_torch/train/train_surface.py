@@ -125,6 +125,18 @@ def create_train_state(cfg: Config, generator: Optional[torch.Generator] = None,
     return TrainState(model, opt, cfg.train)
 
 
+def state_from_weights(cfg: Config, path: str, device="cuda") -> TrainState:
+    """A fresh ``TrainState`` whose model holds a ``save_npz`` file's
+    weights, BatchNorm statistics and counters (copied in place: float32,
+    channels-last), with no momentum and ``step`` 0: the reference's
+    ``create_train_state`` then ``state.replace(params=...,
+    batch_stats=...)``, the start of a fine-tune from a trained net
+    (``scripts/calib_finetune_eval.py``)."""
+    state = create_train_state(cfg, device=device)
+    state.model.load_state_dict(load_npz(path))
+    return state
+
+
 def perturb_calibration(Ps: torch.Tensor, duv: torch.Tensor) -> torch.Tensor:
     """Per-view principal-point shift by ``duv`` (V, 2) pixels: P[0] +=
     du P[2], P[1] += dv P[2] (the reference draws duv = sigma N(0, 1) per
@@ -498,8 +510,9 @@ def train_surfacenet(
         ``PointCloudScene``) or a sequence of them; several scenes share
         one pool if their images have one shape, else the host loop takes
         them in turn.
-      state: a ``TrainState`` to continue (``restore_checkpoint``), else a
-        fresh one on ``device``.
+      state: a ``TrainState`` to continue (``restore_checkpoint``) or to
+        fine-tune (``state_from_weights``), else a fresh one on
+        ``device``.
       start_step: resume offset: the loop runs steps start_step..n_steps,
         logs and checkpoints with their global numbers, and draws a new
         stream for the offset.
@@ -687,8 +700,7 @@ def restore_checkpoint(ckpt_dir: str, cfg: Config, step: Optional[int] = None,
         step = max(int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
                    if d.startswith("step_"))
     path = os.path.join(ckpt_dir, f"step_{step}")
-    state = create_train_state(cfg, device=device)
-    state.model.load_state_dict(load_npz(os.path.join(path, "model.npz")))
+    state = state_from_weights(cfg, os.path.join(path, "model.npz"), device)
     params = dict(state.model.named_parameters())
     with np.load(os.path.join(path, "optim.npz")) as z:
         state.step = int(z["step"])
