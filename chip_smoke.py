@@ -386,7 +386,19 @@ the run with a non-zero exit code and no result line):
       gather and one ``tile`` vote a batch; the control arm's net fused (11
       ``wgmma`` + 1 ``halo_mma`` launches a forward, one voxel >= 0.99,
       points within 2%);
-  27. the result line.
+  27. the float32 training step against the JAX package's: the first 50
+      steps of ``arm_sigma1_lr1e-4_6k`` at the record's size (32^3 cubes,
+      batch 16, 600x800 views) from ``weights_torch/golden_sphere_30k.npz``
+      through ``train_surface.state_from_weights``, ``train_steps_scan``
+      fed the reference's own draws and sampler tables
+      (``results/train_parity_draws.npz``); float32 with the gather's f32
+      entry (TF32 off): its losses and each tensor's change from the start
+      at steps 10, 25 and 50 (L2 norm, projection on a seeded direction)
+      within ``TRAIN_PARITY_BOUNDS`` of the JAX package's float32 run on
+      the CPU (``results/train_parity_ref.json``); the same from a one-ulp
+      nudge and in bf16 with the bf16 entry, reported; fails unless each
+      run launches its gather entry once a step;
+  28. the result line.
 
 Phases 15, 17 and 18 run the refinement prepass, where their presets
 turn it on, at a quarter of its Adam steps a level (``PREPASS_CUT``), to
@@ -400,7 +412,8 @@ readings, not the result line; ``--occlusion-alone``,
 same for phases 23, 24 and 25 (``--train-seed`` trains both arms from
 ``train.seed`` N instead of 0); ``--finetune-alone [--train-seed N]``
 runs phase 26 with all three arms, the 6,000-step one too, held to the
-record's start rows (``train.seed`` N instead of 7).  Reads the shipped
+record's start rows (``train.seed`` N instead of 7);
+``--train-parity-alone`` runs phase 27.  Reads the shipped
 weights under
 ``weights_torch/``.
 Writes only to a temporary directory and to the
@@ -720,6 +733,47 @@ FT_HARMLESS = 0.02
 # every run (clean overall 3.33-5.10 mm against the record's 2.6572), so
 # its runs do not hold the record: not training noise (ROADMAP C13)
 FT_SEED_SPREAD = {}
+# phase 27: the first 50 steps of arm_sigma1_lr1e-4_6k at the record's
+# size on its own draws (results/train_parity_draws.npz) against the JAX
+# package's float32 run of them on the CPU (results/train_parity_ref.json;
+# both written by scripts/train_horizon_parity.py --phase27): the steps at
+# which each tensor's change from the start is compared, and the seed of
+# the random directions its change is projected on
+TRAIN_PARITY_ARM = "arm_sigma1_lr1e-4_6k"
+TRAIN_PARITY_STEPS = (10, 25, 50)
+TRAIN_PARITY_DIRECTION_SEED = 2027
+# the CPU envelope phase 27's bounds come from (train_parity_ref.json's
+# "envelope"): the reference from its start nudged up by one float32 ulp
+# in every parameter, and the reference with its BatchNorm statistics
+# and loss sums in float64 (XLA's CPU float32 sums of those drift by up
+# to 0.4% at this batch; the card's, like torch's on the CPU, do not)
+TRAIN_PARITY_ENVELOPES = ("ref_nudged", "ref_exact")
+# step -> {reading: bound}: 3x the larger envelope reading at that step,
+# to 3 digits (results/train_parity_ref.json, scripts/
+# train_horizon_parity.py --phase27, CPU: the losses' envelope is the
+# reference's own float32 loss sum, 0.62-0.75%; tests/
+# test_torch_train_horizon.py holds these to the file)
+TRAIN_PARITY_BOUNDS = {
+    10: {"loss": 0.0187, "norm": 0.0503, "dot": 0.105},
+    25: {"loss": 0.0187, "norm": 0.045, "dot": 0.0622},
+    50: {"loss": 0.0225, "norm": 0.0588, "dot": 0.0704},
+}
+
+
+def change_summary(start, now, seed=TRAIN_PARITY_DIRECTION_SEED):
+    """Each tensor's change from ``start`` to ``now`` ({name: array}, the
+    port's state-dict names): {name: [L2 norm, dot product with a unit
+    direction]}, the directions drawn in sorted name order from
+    ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in sorted(start):
+        a = np.asarray(start[name], np.float64)
+        u = rng.standard_normal(a.shape)
+        u /= np.linalg.norm(u)
+        d = np.asarray(now[name], np.float64) - a
+        out[name] = [float(np.linalg.norm(d)), float((d * u).sum())]
+    return out
 # the least share of the voxels above tau on which (c)'s card bf16 forward
 # and CPU float32 forward agree: 0.99 at fast64's 7 convs; 0.985 through
 # the paper width's 12, where no bf16 forward keeps 0.99 (on phase 21's
@@ -3158,7 +3212,7 @@ def sphere_sweep(sc, name, cfg, predictor, gt, dev, ply, launches):
     return run, pts
 
 
-def training_aug_phase(dev, tmp, seed=0, hold=True):
+def training_aug_phase(dev, tmp, seed=0, hold=True, train_sets=()):
     """Phase 25: training from scratch, the two arms of
     robustness_aug_r04 (``AUG_ARMS``), each trained on the card by
     ``train_surfacenet`` at ``OCC_SETS`` plus ``AUG_TRAIN_SETS`` (train.seed
@@ -3170,8 +3224,9 @@ def training_aug_phase(dev, tmp, seed=0, hold=True):
     the record and its claims (``aug_misses``); then the clean-trained net
     fused and from 12 PNGs through ``cli reconstruct`` (reported).  With
     ``hold`` false a missed gate on the readings goes to ``"misses"``
-    instead of raising.  Returns the readings and each run's kernel
-    launches."""
+    instead of raising.  ``train_sets``: ``--set`` arguments for the
+    training alone, as ``finetune_phase``'s.  Returns the readings and
+    each run's kernel launches."""
     rows_want, loss_want = aug_record()
     named = {f"{arm} sigma {sigma}": list(keys)
              for (arm, sigma), keys in AUG_SEED_SPREAD.items()}
@@ -3197,13 +3252,14 @@ def training_aug_phase(dev, tmp, seed=0, hold=True):
     npz, card_rows = {}, {}
     for arm, aug in AUG_ARMS.items():
         cfg = cli._apply_overrides(base, [f"train.aug_calib_sigma_px={aug}"])
+        train_cfg = cli._apply_overrides(cfg, list(train_sets))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         with chunk_clock() as clock:
             state, tlog = train_surface.train_surfacenet(
-                clean, cfg, log_every=1, device=dev)
+                clean, train_cfg, log_every=1, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[f"{arm}/train"] = split_counts()
@@ -3213,7 +3269,7 @@ def training_aug_phase(dev, tmp, seed=0, hold=True):
         losses = np.asarray(tlog.losses)
         train = dict(clock.readings(), steps=state.step, batch=batch,
                      chunk=cfg.train.scan_chunk, wall_s=wall,
-                     peak_mem_gb=peak_gb,
+                     dtype=train_cfg.model.dtype, peak_mem_gb=peak_gb,
                      gather_launches=launches[f"{arm}/train"]["warp_gather"])
         train.update(
             steps_per_s=1e3 / train["warm_ms_per_step"],
@@ -3230,16 +3286,18 @@ def training_aug_phase(dev, tmp, seed=0, hold=True):
             f"{peak_gb:.3f} GB, final loss {losses[-1]:.4f} (record "
             f"{loss_want[arm]})")
         log(f"training from scratch {arm} {json.dumps(train)}")
-        bf16 = launches[f"{arm}/train"]["warp_gather_bf16"]
+        entry = ("warp_gather_bf16" if train_cfg.sweep.use_pallas_gather
+                 else "warp_gather_f32")
+        n_entry = launches[f"{arm}/train"][entry]
         if (len(losses) != n_steps or state.step != n_steps
                 or not np.isfinite(losses).all()):
             raise RuntimeError(f"{arm}: {len(losses)} losses, step "
                                f"{state.step}, finite: "
                                f"{np.isfinite(losses).all()}")
-        if not bf16 == train["gather_launches"] == n_steps:
+        if not n_entry == train["gather_launches"] == n_steps:
             raise RuntimeError(f"{arm}: the training gather launched "
-                               f"{train['gather_launches']} times ({bf16} "
-                               f"bf16) in {n_steps} steps")
+                               f"{train['gather_launches']} times ({n_entry} "
+                               f"{entry}) in {n_steps} steps")
         if not train["loss_last250"] < train["loss_first250"]:
             misses.append(f"{arm}: the loss did not fall: "
                           f"{train['loss_first250']} over the first 250 "
@@ -3431,7 +3489,7 @@ def ft_misses(rows, orig, record, spread=FT_SEED_SPREAD):
 
 
 def finetune_phase(dev, tmp, seed=FT_SEED, arms=FT_FULL_ARMS, orig=None,
-                   hold=True):
+                   hold=True, train_sets=()):
     """Phase 26: fine-tuning the trained net, ``arms`` of robustness_ft_r05
     (``FT_ARMS``).  Each starts from
     ``weights_torch/golden_sphere_30k.npz`` through
@@ -3447,6 +3505,9 @@ def finetune_phase(dev, tmp, seed=FT_SEED, arms=FT_FULL_ARMS, orig=None,
     start net's sweeps of those scenes in this run (phase 24's), else the
     record's.  Every row held by ``ft_misses``.  With ``hold`` false a
     missed gate on the readings goes to ``"misses"`` instead of raising.
+    ``train_sets``: ``--set`` arguments for the training alone (the
+    sweeps keep the record's bf16 model), e.g. ``model.dtype="float32"``
+    with ``sweep.use_pallas_gather=false`` (the gather's f32 entry).
     Returns the readings and each run's kernel launches."""
     ft_want, orig_want = ft_record()
     keys = ("acc_mm", "comp_mm", "overall_mm", "n_pts")
@@ -3489,11 +3550,12 @@ def finetune_phase(dev, tmp, seed=FT_SEED, arms=FT_FULL_ARMS, orig=None,
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
+        train_cfg = cli._apply_overrides(cfg, list(train_sets))
         state = train_surface.state_from_weights(
-            cfg, TRAINED_PAPER.format(scene="sphere"), dev)
+            train_cfg, TRAINED_PAPER.format(scene="sphere"), dev)
         with chunk_clock() as clock:
             state, tlog = train_surface.train_surfacenet(
-                clean, cfg, state=state, log_every=1, device=dev)
+                clean, train_cfg, state=state, log_every=1, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[f"{arm}/train"] = split_counts()
@@ -3503,6 +3565,7 @@ def finetune_phase(dev, tmp, seed=FT_SEED, arms=FT_FULL_ARMS, orig=None,
         losses = np.asarray(tlog.losses)
         train = dict(clock.readings(), steps=state.step, batch=batch,
                      chunk=cfg.train.scan_chunk, lr=lr,
+                     dtype=train_cfg.model.dtype,
                      aug_calib_sigma_px=aug, wall_s=wall,
                      peak_mem_gb=peak_gb,
                      gather_launches=launches[f"{arm}/train"]["warp_gather"])
@@ -3520,16 +3583,18 @@ def finetune_phase(dev, tmp, seed=FT_SEED, arms=FT_FULL_ARMS, orig=None,
             f"{peak_gb:.3f} GB, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
             f"(the record keeps no losses)")
         log(f"fine-tuning {arm} {json.dumps(train)}")
-        bf16 = launches[f"{arm}/train"]["warp_gather_bf16"]
+        entry = ("warp_gather_bf16" if train_cfg.sweep.use_pallas_gather
+                 else "warp_gather_f32")
+        n_entry = launches[f"{arm}/train"][entry]
         if (len(losses) != n_steps or state.step != n_steps
                 or not np.isfinite(losses).all()):
             raise RuntimeError(f"{arm}: {len(losses)} losses, step "
                                f"{state.step}, finite: "
                                f"{np.isfinite(losses).all()}")
-        if not bf16 == train["gather_launches"] == n_steps:
+        if not n_entry == train["gather_launches"] == n_steps:
             raise RuntimeError(f"{arm}: the training gather launched "
-                               f"{train['gather_launches']} times ({bf16} "
-                               f"bf16) in {n_steps} steps")
+                               f"{train['gather_launches']} times ({n_entry} "
+                               f"{entry}) in {n_steps} steps")
         del state, tlog
 
         predictor = make_predictor(load_surfacenet(npz, cfg.model),
@@ -3582,6 +3647,184 @@ def finetune_phase(dev, tmp, seed=FT_SEED, arms=FT_FULL_ARMS, orig=None,
         raise RuntimeError("fine-tuning: " + "; ".join(misses))
     out["misses"] = misses
     return out, launches
+
+
+@contextlib.contextmanager
+def fed(draws, dev, aug):
+    """Within the block the generator draws of ``train_steps_scan`` are
+    the reference's (``scripts/aug_replay_inputs.py``'s arrays): per step
+    randint (candidates), rand (jitter), randint (pairs), and with
+    augmentation randn (offsets).  Yields the count of steps fed."""
+    t = {k: torch.as_tensor(np.array(draws[k]), device=dev)
+         for k in ("idx", "unit", "choice", "normal")}
+    order = (("randint", "idx"), ("rand", "unit"), ("randint", "choice"))
+    if aug:
+        order += (("randn", "normal"),)
+    state = {"step": 0, "call": 0}
+    real = {name: getattr(torch, name) for name in ("randint", "rand",
+                                                    "randn")}
+
+    def feeder(name):
+        def draw(*args, generator=None, **kw):
+            if generator is None:
+                return real[name](*args, **kw)
+            want, key = order[state["call"]]
+            if want != name:
+                raise RuntimeError(f"step {state['step']}: torch.{name} "
+                                   f"where the reference draws {want}")
+            got = t[key][state["step"]]
+            size = args[1] if name == "randint" else args[0]
+            if tuple(size) != tuple(got.shape):
+                raise RuntimeError(f"step {state['step']}: torch.{name} of "
+                                   f"{tuple(size)}, the reference's "
+                                   f"{tuple(got.shape)}")
+            state["call"] += 1
+            if state["call"] == len(order):
+                state["call"], state["step"] = 0, state["step"] + 1
+            return got.to(torch.int64) if name == "randint" else got.clone()
+        return draw
+
+    for name in real:
+        setattr(torch, name, feeder(name))
+    try:
+        yield state
+    finally:
+        for name, fn in real.items():
+            setattr(torch, name, fn)
+
+
+def parity_diffs(run, ref):
+    """Phase 27's three readings of a run against the reference trajectory
+    at each of ``TRAIN_PARITY_STEPS``: the losses' largest relative
+    difference up to that step, and over the tensors the largest relative
+    difference of the change's norm and of its projection (both over the
+    reference change's norm)."""
+    out = {}
+    lr, lt = np.asarray(ref["losses"]), np.asarray(run["losses"])
+    for c in TRAIN_PARITY_STEPS:
+        want, got = ref["changes"][str(c)], run["changes"][str(c)]
+        out[str(c)] = {
+            "loss": float(np.max(np.abs(lt[:c] - lr[:c]) / np.abs(lr[:c]))),
+            "norm": max(abs(got[k][0] - n) / n for k, (n, _) in want.items()),
+            "dot": max(abs(got[k][1] - d) / n
+                       for k, (n, d) in want.items()),
+        }
+    return out
+
+
+def train_parity_config(dtype):
+    """Phase 27's config in ``dtype``: ``TRAIN_PARITY_ARM``'s recipe at
+    ``OCC_SETS`` plus ``FT_TRAIN_SETS``, with the gather's bf16 entry in
+    bf16 and its f32 entry in float32."""
+    lr, n_steps, sigma = FT_ARMS[TRAIN_PARITY_ARM]
+    return cli._apply_overrides(Config(), [
+        *OCC_SETS, *FT_TRAIN_SETS, f"train.seed={FT_SEED}", f"train.lr={lr}",
+        f"train.n_steps={n_steps}", f"train.aug_calib_sigma_px={sigma}",
+        f"train.aug_calib_anneal_steps={n_steps}", f'model.dtype="{dtype}"',
+        f"sweep.use_pallas_gather={str(dtype == 'bfloat16').lower()}"])
+
+
+def train_parity_phase(dev, tmp):
+    """Phase 27: the first ``TRAIN_PARITY_STEPS[-1]`` steps of
+    robustness_ft_r05's ``arm_sigma1_lr1e-4_6k`` on the card at the
+    record's size (``OCC_SETS`` plus ``FT_TRAIN_SETS``: 32^3 cubes, batch
+    16, 600x800 views), from ``weights_torch/golden_sphere_30k.npz``
+    through ``train_surface.state_from_weights``, ``train_steps_scan`` on
+    the committed draws and sampler tables (``fed``).  Float32 (the
+    gather's f32 entry; TF32 off, as ``resolve_device`` pins it): held to
+    the JAX package's float32 trajectory on the CPU
+    (``results/train_parity_ref.json``) within ``TRAIN_PARITY_BOUNDS`` at
+    each of ``TRAIN_PARITY_STEPS``; the same from the start nudged by one
+    ulp (the card's own envelope) and in bf16 (the gather's bf16 entry,
+    the record's precision), both reported.  Returns the readings and each
+    run's kernel launches."""
+    del tmp
+    draws = dict(np.load(os.path.join(RESULTS, "train_parity_draws.npz")))
+    with open(os.path.join(RESULTS, "train_parity_ref.json")) as f:
+        ref = json.load(f)
+    steps = TRAIN_PARITY_STEPS[-1]
+    if ref["steps"] != steps or len(ref["ref"]["losses"]) != steps:
+        raise RuntimeError(f"train parity: the reference holds "
+                           f"{ref['steps']} steps, the phase runs {steps}")
+    make, kw = OCC_SCENES["clean"]
+    scene = make(**kw)
+    out, launches = {"bounds": {str(c): b for c, b in
+                                TRAIN_PARITY_BOUNDS.items()}}, {}
+
+    def run(label, dtype, nudged=False):
+        cfg = train_parity_config(dtype)
+        state = train_surface.state_from_weights(
+            cfg, TRAINED_PAPER.format(scene="sphere"), dev)
+        if nudged:
+            with torch.no_grad():
+                for p in state.model.parameters():
+                    p.copy_(torch.nextafter(p, torch.full_like(p, np.inf)))
+        sampler = train_surface.make_device_sampler(scene, cfg,
+                                                    seed=FT_SEED, device=dev)
+        sampler = (torch.as_tensor(draws["cand_pts"], device=dev),
+                   torch.as_tensor(draws["cand_pairs"], device=dev),
+                   *sampler[2:])
+        images = train_surface.gather_copy(scene.images, cfg, dev)
+        Ps = torch.as_tensor(scene.Ps, dtype=torch.float32, device=dev)
+        kw = dict(D=cfg.voxel.cube_size, s=cfg.voxel.voxel_size_mm,
+                  balanced=cfg.train.class_balance,
+                  center_colors=cfg.voxel.center_colors,
+                  aug_sigma_px=cfg.train.aug_calib_sigma_px,
+                  aug_anneal_steps=cfg.train.aug_calib_anneal_steps)
+        start = snapshot(state)
+        losses, changes, done = [], {}, 0
+        reset_counts()
+        t0 = time.perf_counter()
+        with fed(draws, dev, True) as st:
+            for c in TRAIN_PARITY_STEPS:
+                losses += train_surface.train_steps_scan(
+                    state, images, Ps, sampler, torch.Generator(device=dev),
+                    K=c - done, batch=cfg.train.batch_size, **kw).tolist()
+                changes[str(c)] = change_summary(start, snapshot(state))
+                done = c
+        torch.cuda.synchronize()
+        launches[label] = launch_counts()
+        if st["step"] != steps or state.step != steps or not np.isfinite(
+                losses).all():
+            raise RuntimeError(f"train parity {label}: {st['step']} steps "
+                               f"fed, state.step {state.step}, finite "
+                               f"{np.isfinite(losses).all()}")
+        got = {"losses": losses, "changes": changes}
+        reading = {"wall_s": time.perf_counter() - t0,
+                   "loss_first": losses[0], "loss_last": losses[-1],
+                   "vs_ref": parity_diffs(got, ref["ref"])}
+        log(f"train parity {label} {json.dumps(reading)}")
+        return reading
+
+    for label, dtype, nudged in (("float32", "float32", False),
+                                 ("float32_nudged", "float32", True),
+                                 ("bfloat16", "bfloat16", False)):
+        out[label] = run(label, dtype, nudged)
+        entry = "warp_gather_bf16" if dtype == "bfloat16" else "warp_gather_f32"
+        if not (launches[label][entry] == launches[label]["warp_gather"]
+                == steps):
+            raise RuntimeError(f"train parity {label}: the gather launched "
+                               f"{launches[label]['warp_gather']} times "
+                               f"({launches[label][entry]} {entry}) in "
+                               f"{steps} steps")
+    out["cpu"] = ref["envelope"]
+    misses = [f"{key} at step {c}: {got[key]:.3g} > {TRAIN_PARITY_BOUNDS[int(c)][key]:.3g}"
+              for c, got in out["float32"]["vs_ref"].items()
+              for key in got if got[key] > TRAIN_PARITY_BOUNDS[int(c)][key]]
+    log(f"train parity: the CPU's envelope {json.dumps(out['cpu'])}; "
+        f"bounds {json.dumps(out['bounds'])}")
+    if misses:
+        raise RuntimeError("train parity: the card's float32 steps leave "
+                           "the reference's trajectory: " + "; ".join(misses))
+    return out, launches
+
+
+def snapshot(state):
+    """The model's state dict as float64 numpy arrays (running statistics
+    included, the update counters not)."""
+    return {k: v.detach().double().cpu().numpy()
+            for k, v in state.model.state_dict().items()
+            if "num_batches" not in k}
 
 
 def rank_job(path) -> int:
@@ -4098,6 +4341,8 @@ ALONE = {
                          train_seed_args),
     "--finetune-alone": ("finetune", functools.partial(
         finetune_phase, arms=tuple(FT_ARMS)), None, train_seed_args),
+    "--train-parity-alone": ("train_parity", train_parity_phase, None,
+                             no_args),
 }
 
 
@@ -4876,6 +5121,17 @@ def run(pool) -> int:
     ft_tr["wall_s"] = time.perf_counter() - t0
     log(f"fine-tuning phase {ft_tr['wall_s']:.1f} s")
 
+    phase(27, "the float32 training step against the JAX package's: 50 "
+          "steps of the robustness_ft_r05 lr 1e-4 arm at the record's size "
+          "on results/train_parity_draws.npz, held to "
+          "results/train_parity_ref.json; from a one-ulp nudge and in bf16 "
+          "reported")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parity_tr, parity_launches = train_parity_phase(dev, tmp.name)
+    parity_tr["wall_s"] = time.perf_counter() - t0
+    log(f"train parity phase {parity_tr['wall_s']:.1f} s")
+
     kernels = [
         {
             "name": "warp_gather", "route": "cuda",
@@ -4916,6 +5172,11 @@ def run(pool) -> int:
             "finetune_path_launches": {
                 k: v["warp_gather"] for k, v in ft_launches.items()},
             "finetune": card_readings(ft_tr),
+            "train_parity_path_launches": {
+                k: {e: v[e] for e in ("warp_gather_f32", "warp_gather_bf16")}
+                for k, v in parity_launches.items()},
+            "train_parity": {k: parity_tr[k] for k in (
+                "float32", "float32_nudged", "bfloat16", "wall_s")},
             "bench_path_launches": bench_launches["warp_gather_bf16"],
             "bench": bench_out,
         },
@@ -5026,7 +5287,7 @@ def run(pool) -> int:
     tmp.cleanup()
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
 
-    phase(27, "result")
+    phase(28, "result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -90,6 +90,28 @@ def step_draws(k, *, n_cand, n_pairs, batch, n_views):
             jax.random.normal(k_aug, (n_views, 2), jnp.float32))
 
 
+def step_keys(tc, n_steps):
+    """``train_surfacenet``'s step keys on the scan path for its first
+    ``n_steps`` steps at ``train`` config ``tc``: ``PRNGKey(seed + 1)``,
+    one ``split`` a chunk of ``tc.scan_chunk`` steps, ``split(sub, K)``
+    within it.  (n_steps, 2) uint32."""
+    key, parts = jax.random.PRNGKey(tc.seed + 1), []
+    for done in range(0, n_steps, tc.scan_chunk):
+        key, sub = jax.random.split(key)
+        parts.append(jax.random.split(sub, min(tc.scan_chunk,
+                                               n_steps - done)))
+    return jnp.concatenate(parts)
+
+
+def recipe_draws(tc, n_steps, *, n_cand, n_pairs, n_views):
+    """Each of those steps' ``step_draws``: (idx (n, B) int32, unit (n, B,
+    3) float32, choice (n, B) int32, normal (n, V, 2) float32)."""
+    draw = jax.jit(jax.vmap(lambda k: step_draws(
+        k, n_cand=n_cand, n_pairs=n_pairs, batch=tc.batch_size,
+        n_views=n_views)))
+    return tuple(np.asarray(a) for a in draw(step_keys(tc, n_steps)))
+
+
 def main(out_dir, seed=None, recipe="aug"):
     os.makedirs(out_dir, exist_ok=True)
     if seed is None:
@@ -105,15 +127,9 @@ def main(out_dir, seed=None, recipe="aug"):
                  **flat(state.batch_stats, "batch_stats"))
     cand_pts, cand_pairs, _, _ = make_device_sampler(scene, cfg,
                                                      seed=tc.seed)
-    draw = jax.jit(jax.vmap(lambda k: step_draws(
-        k, n_cand=cand_pts.shape[0], n_pairs=cand_pairs.shape[1],
-        batch=tc.batch_size, n_views=scene.Ps.shape[0])))
-    key, parts = jax.random.PRNGKey(tc.seed + 1), []
-    for done in range(0, N_STEPS, tc.scan_chunk):
-        key, sub = jax.random.split(key)
-        keys = jax.random.split(sub, min(tc.scan_chunk, N_STEPS - done))
-        parts.append([np.asarray(a) for a in draw(keys)])
-    idx, unit, choice, normal = (np.concatenate(p) for p in zip(*parts))
+    idx, unit, choice, normal = recipe_draws(
+        tc, N_STEPS, n_cand=cand_pts.shape[0], n_pairs=cand_pairs.shape[1],
+        n_views=scene.Ps.shape[0])
     # the jitter as the reference's body computes it, from the same key
     k2 = jax.random.split(jax.random.split(jax.random.split(
         jax.random.PRNGKey(tc.seed + 1))[1], tc.scan_chunk)[0], 4)[1]

@@ -33,10 +33,17 @@ its own start (the converted ``golden_sphere_30k``, as the record's from
 ``weights/golden_sphere_30k``), fed the recipe's draws (seed 7, chunks of
 25 steps); the rows are held to the record's start rows.
 
-    python3 scripts/torch_aug_replay.py INPUTS_DIR
+``--dtype float32`` trains in float32 with the gather's f32 entry (TF32
+off, as ``resolve_device`` pins it on the card) where the record trained
+in bf16 with the bf16 entry; the sweeps keep the record's bf16 model.
+``--arms A,B`` (fine-tune inputs) replays only those arms of
+``chip_smoke.FT_ARMS``.
+
+    python3 scripts/torch_aug_replay.py INPUTS_DIR [--dtype float32]
+        [--arms arm_sigma1_lr1e-4_6k]
 """
 
-import contextlib
+import argparse
 import json
 import os
 import sys
@@ -67,55 +74,20 @@ def nested(flat):
     return out
 
 
-@contextlib.contextmanager
-def fed(draws, dev, aug):
-    """Within the block the generator draws of ``train_steps_scan`` are
-    the reference's: per step randint (candidates), rand (jitter),
-    randint (pairs), and with augmentation randn (offsets)."""
-    t = {k: torch.as_tensor(np.array(draws[k]), device=dev)
-         for k in ("idx", "unit", "choice", "normal")}
-    order = (("randint", "idx"), ("rand", "unit"), ("randint", "choice"))
-    if aug:
-        order += (("randn", "normal"),)
-    state = {"step": 0, "call": 0}
-    real = {name: getattr(torch, name) for name in ("randint", "rand",
-                                                    "randn")}
-
-    def feeder(name):
-        def draw(*args, generator=None, **kw):
-            if generator is None:
-                return real[name](*args, **kw)
-            want, key = order[state["call"]]
-            if want != name:
-                raise RuntimeError(f"step {state['step']}: torch.{name} "
-                                   f"where the reference draws {want}")
-            got = t[key][state["step"]]
-            size = args[1] if name == "randint" else args[0]
-            if tuple(size) != tuple(got.shape):
-                raise RuntimeError(f"step {state['step']}: torch.{name} of "
-                                   f"{tuple(size)}, the reference's "
-                                   f"{tuple(got.shape)}")
-            state["call"] += 1
-            if state["call"] == len(order):
-                state["call"], state["step"] = 0, state["step"] + 1
-            return got.to(torch.int64) if name == "randint" else got.clone()
-        return draw
-
-    for name in real:
-        setattr(torch, name, feeder(name))
-    try:
-        yield state
-    finally:
-        for name, fn in real.items():
-            setattr(torch, name, fn)
+# the reference's draws fed to train_steps_scan (phase 27's feeder too)
+fed = chip_smoke.fed
 
 
-def main(inputs):
+def main(inputs, dtype="bfloat16", arms=None):
     dev = torch.device("cuda", 0)
     chip_smoke.log(chip_smoke.card_line())
     chip_smoke.log(f"kernels built in {_build.build_all():.2f} s")
     draws = dict(np.load(os.path.join(inputs, "draws.npz")))
     finetune = str(draws.get("recipe", "aug")) == "finetune"
+    if not finetune and arms:
+        raise SystemExit("--arms replays fine-tune inputs only")
+    train_sets = () if dtype == "bfloat16" else (
+        f'model.dtype="{dtype}"', "sweep.use_pallas_gather=false")
     if not finetune:
         init = params_from_jax(nested(dict(np.load(
             os.path.join(inputs, "init.npz")))))
@@ -144,13 +116,15 @@ def main(inputs):
         if finetune:
             out, launches = chip_smoke.finetune_phase(
                 dev, tmp, seed=int(draws["seed"]),
-                arms=tuple(chip_smoke.FT_ARMS), hold=False)
+                arms=tuple(arms or chip_smoke.FT_ARMS), hold=False,
+                train_sets=train_sets)
         else:
             out, launches = chip_smoke.training_aug_phase(
-                dev, tmp, seed=int(draws["seed"]), hold=False)
+                dev, tmp, seed=int(draws["seed"]), hold=False,
+                train_sets=train_sets)
     train_surface.train_surfacenet = real_train
     out.update(wall_s=time.perf_counter() - t0, fed_steps=fed_steps,
-               sampler_tables=tables)
+               sampler_tables=tables, train_dtype=dtype)
     chip_smoke.log(f"replay fed steps {fed_steps}, tables {tables}, "
                    f"misses {out['misses']}")
     print(json.dumps({"training_replay": out, "launches": launches}),
@@ -159,4 +133,10 @@ def main(inputs):
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1]))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("inputs")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
+    ap.add_argument("--arms", default=None, type=lambda a: a.split(","))
+    args = ap.parse_args()
+    sys.exit(main(args.inputs, args.dtype, args.arms))
