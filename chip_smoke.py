@@ -731,7 +731,12 @@ FT_HARMLESS = 0.02
 # 1, 2, 3, 4; NVIDIA H100 80GB HBM3, 700 W) FT_FULL_ARMS kept every
 # reading within the band at FT_SEED, and arm_sigma1_lr1e-4_6k left it in
 # every run (clean overall 3.33-5.10 mm against the record's 2.6572), so
-# its runs do not hold the record: not training noise (ROADMAP C13)
+# its runs do not hold the record and its miss stands.  The arm scatters
+# by draw beyond the band all the same: the same step on the JAX
+# package's own draws at its seeds 1 and 2 reads 3.149 and 2.3546 mm
+# clean, and a float32 backward (scripts/torch_bf16_variants.py's
+# fp32_backward) 1.1557-4.457 mm over those draws and the port's seeds 7
+# and 1-4 (ROADMAP C13)
 FT_SEED_SPREAD = {}
 # phase 27: the first 50 steps of arm_sigma1_lr1e-4_6k at the record's
 # size on its own draws (results/train_parity_draws.npz) against the JAX

@@ -45,10 +45,19 @@ Variants:
     python3 scripts/torch_bf16_variants.py replay INPUTS_DIR VARIANT \\
         [--arms arm_sigma1_lr1e-4_6k]
     python3 scripts/torch_bf16_variants.py grads [--device cpu]
+    python3 scripts/torch_bf16_variants.py steps VARIANT [--steps 500]
     python3 scripts/torch_bf16_variants.py chip VARIANT --finetune-alone
 
+``steps``: the record's training step alone (robustness_ft_r05's lr 1e-4
+arm: 32^3, batch 16, the paper width from ``golden_sphere_30k``, its
+config and the port's own draws at seed 7) under the shipped step and
+VARIANT in turns (shipped, VARIANT, VARIANT, shipped), each run N steps
+from the same start: ms a step from CUDA events around each chunk of 25
+(the first chunk left out) and the peak memory allocated.
+
 ``replay`` prints ``torch_aug_replay``'s JSON line with ``"variant"``
-added; ``grads`` one JSON line ``{"grads": ...}``; ``chip`` runs
+added; ``grads`` one JSON line ``{"grads": ...}``; ``steps`` one JSON
+line ``{"steps": ...}``; ``chip`` runs
 ``chip_smoke.py``'s ``--*-alone`` phase (its arguments after the
 variant) with the variant's patches while each net trains.
 """
@@ -382,6 +391,46 @@ def grads_main(device):
     return 0
 
 
+def step_times(variant, n_steps):
+    """``steps``: {run: chunk_clock's readings and the peak memory} for
+    the shipped step and ``variant`` in turns, ``n_steps`` steps each."""
+    import chip_smoke
+    from surfacenet_tpu_torch import cli
+    from surfacenet_tpu_torch.config import Config
+    from surfacenet_tpu_torch.ops.cuda import _build
+    from surfacenet_tpu_torch.train import train_surface
+
+    dev = torch.device("cuda", 0)
+    chip_smoke.log(chip_smoke.card_line())
+    chip_smoke.log(f"kernels built in {_build.build_all():.2f} s")
+    lr, _, sigma = chip_smoke.FT_ARMS[chip_smoke.TRAIN_PARITY_ARM]
+    cfg = cli._apply_overrides(Config(), [
+        *chip_smoke.OCC_SETS, *chip_smoke.FT_TRAIN_SETS,
+        f"train.seed={chip_smoke.FT_SEED}", f"train.lr={lr}",
+        f"train.n_steps={n_steps}", f"train.aug_calib_sigma_px={sigma}",
+        f"train.aug_calib_anneal_steps={n_steps}"])
+    make, kw = chip_smoke.OCC_SCENES["clean"]
+    scene = make(**kw)
+    runs = {}
+    for i, label in enumerate(("shipped", variant, variant, "shipped")):
+        state = train_surface.state_from_weights(
+            cfg, chip_smoke.TRAINED_PAPER.format(scene="sphere"), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with patched(label), chip_smoke.chunk_clock() as clock:
+            train_surface.train_surfacenet(scene, cfg, state=state,
+                                           log_every=n_steps, device=dev)
+        torch.cuda.synchronize()
+        run = dict(clock.readings(), variant=label,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del run["chunk_ms"]
+        runs[f"{i}_{label}"] = run
+        chip_smoke.log(f"steps {label}: {json.dumps(run)}")
+        del state
+        torch.cuda.empty_cache()
+    return runs
+
+
 def patched_training(variant):
     """``train_surface.train_surfacenet`` with ``variant``'s patches in
     place while it runs (the sweeps after it run the model as shipped)."""
@@ -427,12 +476,20 @@ def main():
     rp.add_argument("--arms", default=None, type=lambda a: a.split(","))
     gp = sub.add_parser("grads")
     gp.add_argument("--device", default="cuda")
+    sp = sub.add_parser("steps")
+    sp.add_argument("variant", choices=sorted(VARIANTS))
+    sp.add_argument("--steps", type=int, default=500)
     cp = sub.add_parser("chip")
     cp.add_argument("variant", choices=sorted(VARIANTS))
     cp.add_argument("alone", nargs=argparse.REMAINDER)
     args = ap.parse_args()
     if args.mode == "grads":
         return grads_main(args.device)
+    if args.mode == "steps":
+        print(json.dumps({"steps": {
+            "card": torch.cuda.get_device_name(0), "steps": args.steps,
+            "runs": step_times(args.variant, args.steps)}}), flush=True)
+        return 0
     if args.mode == "chip":
         import chip_smoke
 
